@@ -1,0 +1,95 @@
+"""Fused SIDEKIT feature kernel: wrapper, plain version and frontend.
+
+Port of the JAX package's only Pallas kernel,
+``inaspeechsegmenter_tpu/dsp/pallas_fe.py::_kernel`` (the
+``ISS_FRONTEND=pallas`` frontend there; the Segmenter's frontend here).
+The kernel is ``csrc/sidekit_fe.cu``; its source comment says what bounds
+it on the H100 and how its design answers that.
+
+:func:`sidekit_features` launches the kernel for a CUDA tensor and runs the
+plain PyTorch version (:func:`sidekit_features_plain`, the transcription of
+``sidekit.py::_chunk_feats``) for a CPU tensor.  It never falls back from
+one to the other: a CUDA tensor that the kernel cannot take raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils import cuda_build
+from . import sidekit
+from .sidekit import HOP, NBINS, NMEL, WIN, FrontendConsts, frame_count
+
+
+def sidekit_features_plain(sig, consts: FrontendConsts):
+    """Plain PyTorch features on the signal's own device."""
+    return sidekit.mspec_loge(sig, consts)
+
+
+def _check_consts(consts: FrontendConsts, device):
+    shapes = {"window": (WIN,), "dcos": (WIN, NBINS), "dsin": (WIN, NBINS),
+              "fbank_t": (NBINS, NMEL)}
+    for name, shape in shapes.items():
+        t = getattr(consts, name)
+        if (t.device != device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"frontend constant {name} must be a contiguous float32 "
+                f"{shape} tensor on {device}; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+
+
+def sidekit_features(sig, consts: FrontendConsts):
+    """Log-mel and log-energy of a 1-D float32 or int16 signal tensor.
+
+    :return: (mspec (T, 24), loge (T,)) float32 on the signal's device,
+        T = frame_count(len(sig)).
+    """
+    if sig.device.type == "cpu":
+        return sidekit_features_plain(sig, consts)
+    if sig.device.type != "cuda":
+        raise ValueError(f"unsupported device {sig.device}")
+    if sig.dim() != 1 or sig.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"signal must be 1-D float32 or int16, got "
+                         f"{sig.dtype} {tuple(sig.shape)}")
+    if not sig.is_contiguous():
+        raise ValueError("signal must be contiguous")
+    _check_consts(consts, sig.device)
+    t = frame_count(sig.shape[0])
+    mspec = torch.empty((t, NMEL), dtype=torch.float32, device=sig.device)
+    loge = torch.empty((t,), dtype=torch.float32, device=sig.device)
+    if t == 0:
+        return mspec, loge
+    lib = cuda_build.library()
+    with torch.cuda.device(sig.device):
+        rc = lib.iss_sidekit_fe(
+            sig.data_ptr(), int(sig.dtype == torch.int16), t,
+            consts.window.data_ptr(), consts.dcos.data_ptr(),
+            consts.dsin.data_ptr(), consts.fbank_t.data_ptr(),
+            mspec.data_ptr(), loge.data_ptr(),
+            torch.cuda.current_stream(sig.device).cuda_stream)
+    cuda_build.check_launch("sidekit_fe", rc)
+    sidekit_features.launches += 1
+    return mspec, loge
+
+
+sidekit_features.launches = 0
+
+
+class KernelSidekitFrontend:
+    """The Segmenter's frontend: host signal in, device features out."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.consts = sidekit.frontend_consts(self.device)
+
+    def mspec_loge(self, sig):
+        """Host signal (int16 kept as int16 for a half-size upload, any
+        other dtype as float32) -> (mspec (T, 24), loge (T,), T) on
+        ``self.device``."""
+        arr = np.asarray(sig)
+        keep = np.int16 if arr.dtype == np.int16 else np.float32
+        sig = torch.from_numpy(np.ascontiguousarray(arr, dtype=keep))
+        mspec, loge = sidekit_features(sig.to(self.device), self.consts)
+        return mspec, loge, mspec.shape[0]

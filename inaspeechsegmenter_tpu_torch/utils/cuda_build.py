@@ -1,0 +1,117 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles in ONE ``nvcc`` call into one shared
+library with a plain C interface, loaded through ``ctypes`` (no PyTorch
+headers: a source that includes them takes minutes to build, these take
+seconds).  The library name carries a hash of the sources and flags, so an
+edited kernel is rebuilt at first use and a stale library is never loaded.
+
+Built for Hopper only (``sm_90a``).  No ``--use_fast_math``: it flushes
+denormals and approximates ``logf``, and the frontend's ``-inf`` rows on
+digital silence depend on an exact ``log(0)``.
+
+Nothing is built or loaded at import: the first kernel launch calls
+:func:`library`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def build_dir():
+    """``$ISS_TORCH_BUILD_DIR``, else ``build/torch_kernels`` beside the
+    package (the checkout's git-ignored ``build/``)."""
+    return os.environ.get("ISS_TORCH_BUILD_DIR") or os.path.join(
+        os.path.dirname(PKG_DIR), "build", "torch_kernels")
+
+
+def find_nvcc():
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the CUDA kernels")
+
+
+def build(verbose=False):
+    """Compile the library if no build of the current sources exists.
+
+    :return: path of the shared library.
+    :raises RuntimeError: with nvcc's output when the build fails.
+    """
+    out_dir = build_dir()
+    lib = os.path.join(out_dir, f"libiss_torch_kernels_{source_hash()}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = os.path.join(out_dir, f"tmp{os.getpid()}_{os.path.basename(lib)}")
+    cmd = [find_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, lib)   # atomic: a concurrent loader never sees half a file
+    return lib
+
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (sig, is_int16, n_frames, window, dcos, dsin, fbank_t, mspec, loge,
+    #  stream) -> cudaError_t
+    "iss_sidekit_fe": [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P,
+                       _P, _P, _P],
+    # (emission, reset, trans, init, T, K, ptrs, amax, states, stream)
+    "iss_viterbi": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
+                    _P, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded kernel library (built first if needed), with every entry
+    point's ``argtypes``/``restype`` declared."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(name, rc):
+    """Raise if a launch returned a non-zero ``cudaGetLastError()``."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed "
+                           f"(cudaError {rc})")
