@@ -20,11 +20,24 @@ Phases, each fatal on failure (non-zero exit, no final line):
    golden silence csv, the csv header, that segments tile each file, that
    both kernels were launched by that run, and that the 60 s labels agree
    with the port on ``device="cpu"`` on >= 99.9% of frames.  Prints per-file
-   wall time and real-time factor.
+   wall time and real-time factor;
+3. voice femininity scoring: a full-width ``ResNet101XVector`` (random
+   weights from seed 0, saved as ``raw_81.npz``) and the synthetic MLP,
+   ``VoiceFemininityScoring("bgc", ffmpeg=None, device="cuda")``,
+   ``batch_score`` of phase 2's three WAVs.  Checks the csv header, the
+   silence golden row, that each mix's speech_duration equals the VAD's
+   speech total with nb_vectors > 0 and 0 <= score <= 1, and that both
+   kernels were launched by that run; then cuda against cpu on the first
+   15 s of the 60 s mix: VBx features within ``dsp.vbx.device_atol``,
+   ResNet101 embeddings of the same windows within a relative L2 error of
+   1e-3, MLP probabilities within 1e-4, and the end-to-end result equal
+   when the two VAD timelines are.  Prints, for the warm 10 min file, wall time, RTF,
+   the stage split, windows/s, ms per 256-window sub-batch, the ResNet's
+   TFLOP/s and the peak device memory.
 
-The lines before the last are a JSON object of the kernels and the card's
-name and power limit; the last line is the JSON result.  Imports nothing
-of JAX.
+The lines before the last are a JSON object of the kernels (launches
+summed over phases 2 and 3) and the card's name and power limit; the last
+line is the JSON result.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -287,6 +300,168 @@ def phase_main(torch, dev, workdir):
     n_diff = int((a != b).sum())
     log(f"[main] mix60 cuda vs cpu: {n_diff} of {len(a)} frames differ")
     check(n_diff <= 0.001 * len(a), "cuda and cpu labels differ on >0.1%")
+    return launches, files, wavs, models
+
+
+# --------------------------------------------------------------------------
+VFS_PART_SECONDS = 15     # cuda-vs-cpu part of mix60: the CPU runs the
+                          # full ResNet101 on its windows
+
+
+def rel_l2(a, b):
+    return float((np.linalg.norm(a - b, axis=1)
+                  / np.linalg.norm(b, axis=1)).max())
+
+
+def phase_vfs(torch, dev, workdir, files, wavs, models):
+    """VFS on the card: full-width ResNet101 (seeded random weights) and the
+    synthetic MLP, batch-scored over phase 2's three WAVs."""
+    from inaspeechsegmenter_tpu_torch import Segmenter, VoiceFemininityScoring
+    from inaspeechsegmenter_tpu_torch.annotations import SpeechTimeline
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+    from inaspeechsegmenter_tpu_torch.dsp.vbx import (
+        VbxFrontend, device_atol, host_segment)
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNet101XVector
+    from inaspeechsegmenter_tpu_torch.vfs import WINLEN, save_resnet_npz
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t0 = time.perf_counter()
+    params = ResNet101XVector().init_params(seed=0)
+    save_resnet_npz(os.path.join(models, "raw_81.npz"), params)
+    vfs = VoiceFemininityScoring("bgc", ffmpeg=None, device=dev,
+                                 model_dir=models)
+    log(f"[vfs] ResNet101 weights saved and VoiceFemininityScoring(device="
+        f"{dev}) built in {time.perf_counter() - t0!r} s")
+
+    csvs = [os.path.join(workdir, "vfs", os.path.basename(w)[:-4] + ".csv")
+            for w in wavs]
+    fe_kernel.sidekit_features.launches = 0
+    tv.viterbi_scan.launches = 0
+    t0 = time.perf_counter()
+    dur, n_ok, avg, lmsg = vfs.batch_score(wavs, csvs)
+    batch_s = time.perf_counter() - t0
+    launches = {"sidekit_fe": fe_kernel.sidekit_features.launches,
+                "viterbi": tv.viterbi_scan.launches}
+    log(f"[vfs] batch_score of {len(wavs)} files: {batch_s!r} s, statuses "
+        f"{[m[1:] for m in lmsg]}, launches {launches}")
+    check(n_ok == len(wavs), f"vfs batch statuses {lmsg}")
+    for name, n in launches.items():
+        check(n > 0, f"the VFS run never launched the {name} kernel")
+
+    vad = Segmenter("smn", False, ffmpeg=None, device=dev, model_dir=models)
+    for (name, sig), csv in zip(files.items(), csvs):
+        with open(csv) as fh:
+            lines = fh.read().splitlines()
+        check(lines[0] == "score\tspeech_duration\tnb_vectors",
+              f"{name}: vfs header {lines[0]!r}")
+        score, sdur, n_vec = lines[1].split("\t")
+        log(f"[vfs] {name}: score={score or 'None'} speech_duration={sdur} "
+            f"nb_vectors={n_vec}")
+        if name == "silence2sec":
+            check(lines[1] == "\t0.0\t0", f"silence vfs row {lines[1]!r}")
+            continue
+        want = SpeechTimeline.from_vad(vad.segment_signal(sig)) \
+            .total_duration()
+        check(float(sdur) == want,
+              f"{name}: speech_duration {sdur} != the VAD's {want!r}")
+        check(int(n_vec) > 0 and 0.0 <= float(score) <= 1.0,
+              f"{name}: vfs row {lines[1]!r}")
+
+    # cuda against cpu, stage by stage, on the first VFS_PART_SECONDS of mix60
+    part = files["mix60"][:VFS_PART_SECONDS * SR]
+    signal = part.astype(np.float64) / 32768.0
+    fea_c = vfs.features.features(signal)
+    fea_p = VbxFrontend("cpu").features(signal)
+    n_fr = fea_p.shape[0]
+    fea_err = float((fea_c.cpu() - fea_p).abs().max())
+    log(f"[vfs] {VFS_PART_SECONDS} s part: VBx features cuda vs cpu "
+        f"max_abs_err={fea_err!r} (T={n_fr}, atol {device_atol(n_fr)!r})")
+    check(fea_err <= device_atol(n_fr), "VBx features differ")
+    vfs_cpu = VoiceFemininityScoring("bgc", ffmpeg=None, device="cpu",
+                                     model_dir=models, xvector_params=params)
+    starts = list(range(0, n_fr - WINLEN, 24))
+    t0 = time.perf_counter()
+    emb_p = vfs_cpu.xvector_model.embeddings_from_features(fea_p, starts)
+    cpu_s = time.perf_counter() - t0
+    emb_c = vfs.xvector_model.embeddings_from_features(fea_p.to(dev), starts)
+    emb_err = rel_l2(emb_c, emb_p)
+    log(f"[vfs] ResNet101 embeddings of {len(starts)} windows cuda vs cpu: "
+        f"max_rel_l2={emb_err!r} (cpu forward {cpu_s!r} s)")
+    check(emb_err <= 1e-3, "embeddings differ")
+    p_c = vfs.mlp_probabilities(emb_p * 10)
+    p_p = vfs_cpu.mlp_probabilities(emb_p * 10)
+    p_err = float(np.abs(p_c - p_p).max())
+    log(f"[vfs] MLP probabilities cuda vs cpu: max_abs_err={p_err!r}")
+    check(p_err <= 1e-4, "MLP probabilities differ")
+    same_vad = (vfs.vad.segment_signal(part)
+                == vfs_cpu.vad.segment_signal(part))
+    got, want = vfs.score_signal(part), vfs_cpu.score_signal(part)
+    log(f"[vfs] {VFS_PART_SECONDS} s part end to end: cuda {got} cpu {want} "
+        f"(VAD timelines {'equal' if same_vad else 'differ'})")
+    if same_vad:
+        check(got == want, "cuda and cpu VFS results differ")
+
+    # the warm 10 min file: wall time and the stage split
+    sig = files["mix600"]
+    wav = wavs[list(files).index("mix600")]
+    vfs(wav)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        vfs(wav)
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    log(f"[vfs] mix600 warm: {len(sig) / SR!r} s audio, wall {wall!r} s "
+        f"(median of {walls}), rtf {len(sig) / SR / wall!r}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()!r} B")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    splits = []
+    for _ in range(3):
+        lseg, t_vad = timed(lambda: vfs.vad.segment_signal(sig))
+        timeline = SpeechTimeline.from_vad(lseg)
+        signal = sig.astype(np.float64) / 32768.0
+        seg, t_host = timed(lambda: host_segment(signal))
+        fea, t_dev = timed(lambda: vfs.features.device_features(
+            torch.from_numpy(seg).to(dev)))
+        xv, t_res = timed(lambda: vfs.xvector_model(
+            "mix600", fea, len(sig) / SR, timeline=timeline))
+        res, t_mlp = timed(lambda: vfs._score_xvectors(
+            xv, timeline, timeline.total_duration()))
+        splits.append((t_vad, t_host, t_dev, t_res, t_mlp))
+    t_vad, t_host, t_dev, t_res, t_mlp = sorted(splits, key=sum)[1]
+    total = t_vad + t_host + t_dev + t_res + t_mlp
+    n_win = len(xv)
+    xm = vfs.xvector_model
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        xm.net(fea[:WINLEN].T[None])
+    flops = counter.get_total_flops()       # convs + projection, one window
+    for name, t in (("VAD (Segmenter smn, no gender)", t_vad),
+                    ("VBx features, host dither + pad", t_host),
+                    ("VBx features, upload + device", t_dev),
+                    ("ResNet101 x-vectors", t_res),
+                    ("MLP + scoring", t_mlp)):
+        log(f"[vfs] stage {name}: {t * 1e3!r} ms ({100 * t / total:.1f}%)")
+    log(f"[vfs] stages sum {total!r} s; result {res}; windows embedded "
+        f"{n_win}, windows/s {n_win / t_res!r}, ResNet TFLOP/s "
+        f"{n_win * flops / t_res / 1e12!r} ({flops!r} FLOP per window)")
+    starts = list(range(0, 256 * 24, 24))
+    ms = cuda_ms(lambda: xm.embeddings_from_features(fea, starts), 5, torch)
+    log(f"[vfs] one 256-window sub-batch: {ms!r} ms, "
+        f"{256 * flops / ms / 1e9!r} TFLOP/s")
+    seg_dev = torch.from_numpy(seg).to(dev)
+    fe_ms = cuda_ms(lambda: vfs.features.device_features(seg_dev), 10, torch)
+    log(f"[vfs] VBx device features (plain PyTorch), 10 min: {fe_ms!r} ms "
+        f"for {fea.shape[0]} frames")
     return launches
 
 
@@ -314,9 +489,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kernels = [phase_features(torch, dev), phase_viterbi(torch, dev)]
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main(torch, dev, workdir)
+        launches, files, wavs, models = phase_main(torch, dev, workdir)
+        launches_vfs = phase_vfs(torch, dev, workdir, files, wavs, models)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches[k["name"]] + launches_vfs[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

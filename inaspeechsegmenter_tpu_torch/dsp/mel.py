@@ -1,10 +1,11 @@
-"""SIDEKIT triangular mel filterbank (host-side, setup time).
+"""Mel filterbanks (host-side, setup time).
 
-Numpy-only copy of ``htk_triangular_fbank`` from
-``inaspeechsegmenter_tpu/dsp/mel.py`` (reference sidekit_mfcc.py:118-197
-`trfbank`): HTK mel scale, triangular filters with 2/(hi-low) peak
-normalization, assembled in FFT-bin space with the reference's floor/bin
-conventions.  The Kaldi bank of the VBx frontend is not part of this slice.
+Numpy-only copies from ``inaspeechsegmenter_tpu/dsp/mel.py``:
+``htk_triangular_fbank`` (reference sidekit_mfcc.py:118-197 `trfbank`:
+HTK mel scale, triangular filters with 2/(hi-low) peak normalization,
+assembled in FFT-bin space with the reference's floor/bin conventions) for
+the SIDEKIT frontend, and ``kaldi_mel_fbank`` (reference features_vbx.py
+`mel_fbank_mx`) for the VBx frontend of the VFS pipeline.
 """
 
 from __future__ import annotations
@@ -81,3 +82,43 @@ def htk_triangular_fbank(fs, nfft, lowfreq, maxfreq, nlinfilt, nlogfilt,
         fbank[i, rid[:-1]] = right_slope * (hi - fft_freqs[rid[:-1]])
 
     return fbank, freqs
+
+
+def mel_kaldi(x):
+    return 1127.0 * np.log(1.0 + np.asarray(x, dtype=np.float64) / 700.0)
+
+
+def mel_inv_kaldi(x):
+    return (np.exp(np.asarray(x, dtype=np.float64) / 1127.0) - 1.0) * 700.0
+
+
+def kaldi_mel_fbank(winlen_nfft, fs, numchans=20, lofreq=0.0, hifreq=None,
+                    htk_bug=True):
+    """VBx/Kaldi-compatible mel filterbank, shape (nfft//2+1, numchans).
+
+    Numerically identical to the reference `mel_fbank_mx`
+    (features_vbx.py:31-59), including the integer center-bin layout and the
+    optional HTK first-bin zeroing bug.
+    """
+    hifreq = 0.5 * fs if not hifreq else hifreq
+    if winlen_nfft > 0:
+        nfft = 2 ** int(np.ceil(np.log2(winlen_nfft)))
+    else:
+        nfft = -int(winlen_nfft)
+
+    fbin_mel = mel_kaldi(np.arange(nfft / 2 + 1, dtype=float) * fs / nfft)
+    cbin_mel = np.linspace(mel_kaldi(lofreq), mel_kaldi(hifreq), numchans + 2)
+    cind = np.floor(mel_inv_kaldi(cbin_mel) / fs * nfft).astype(int) + 1
+    mfb = np.zeros((len(fbin_mel), numchans))
+    for i in range(numchans):
+        mfb[cind[i]: cind[i + 1], i] = (
+            (cbin_mel[i] - fbin_mel[cind[i]: cind[i + 1]])
+            / (cbin_mel[i] - cbin_mel[i + 1])
+        )
+        mfb[cind[i + 1]: cind[i + 2], i] = (
+            (cbin_mel[i + 2] - fbin_mel[cind[i + 1]: cind[i + 2]])
+            / (cbin_mel[i + 2] - cbin_mel[i + 1])
+        )
+    if lofreq > 0.0 and float(lofreq) / fs * nfft + 0.5 > cind[0] and htk_bug:
+        mfb[cind[0], :] = 0.0
+    return mfb

@@ -4,7 +4,8 @@ Counterparts of ``inaspeechsegmenter_tpu/models/layers.py`` for the layers
 the patch CNNs use: Conv2D (Keras SAME/VALID padding, no dilation),
 BatchNormalization (moving statistics, epsilon from the config),
 MaxPooling2D (VALID), Flatten (in
-Keras NHWC order), Dense, and the relu / softmax / linear activations.
+Keras NHWC order), Dense, and the relu / softmax / sigmoid / linear
+activations (sigmoid ends the VFS scoring MLP).
 Activations run channels-first (NCHW) inside the model; Flatten restores
 the NHWC element order that the Dense weights were trained against.  Any
 other layer class or activation raises.
@@ -35,6 +36,8 @@ def _activation(name):
         return F.relu
     if name == "softmax":
         return lambda x: F.softmax(x, dim=-1)
+    if name == "sigmoid":
+        return torch.sigmoid
     raise NotImplementedError(f"activation {name!r}")
 
 

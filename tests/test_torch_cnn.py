@@ -70,6 +70,23 @@ def test_forward_matches_jax(nmel, nout, seed):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [3, 4])
+def test_gender_mlp_matches_jax(seed):
+    """The VFS scoring MLP (256 -> 128 relu -> 1 sigmoid) within 1e-6."""
+    spec, params = tsyn.build_gender_mlp(seed=seed)
+    spec_j, params_j = jsyn.build_gender_mlp(seed=seed)
+    assert spec == spec_j
+    x = np.random.default_rng(seed).standard_normal(
+        (64, 256)).astype(np.float32)
+    want = np.asarray(ImportedModel(spec_j, params_j)(x))
+    model = native.PatchCNN(spec, native.params_from_jax(spec, params))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (64, 1)
+    assert ((got > 0) & (got < 1)).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
 def test_flatten_keeps_keras_nhwc_order():
     """A Dense after Flatten sees (h, w, c)-ordered features."""
     spec = dict(layers=[

@@ -9,6 +9,11 @@ conftest cannot load there):
 Features: finite masks equal, mspec within rtol/atol 1e-4, loge within
 1e-5 (float32 sums in another order).  Viterbi: states bit-equal,
 including exact ties, -inf and NaN scores.
+
+The VFS path has no hand kernel; its cases hold the CUDA run of the plain
+PyTorch code (cuDNN / cuBLAS, TF32 off) against the CPU run: VBx features
+within ``dsp.vbx.device_atol(n_frames)``, tiny-ResNet embeddings within a relative L2
+error of 1e-4, and the end-to-end score equal.
 """
 
 import numpy as np
@@ -18,7 +23,7 @@ import torch
 from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
 from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
 from inaspeechsegmenter_tpu_torch.dsp import fe_kernel, sidekit
-from torch_parity_helpers import speechlike, to_int16
+from torch_parity_helpers import speechlike, to_int16, voiced
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +33,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -113,3 +119,61 @@ def test_segmenter_cuda_matches_cpu(dev, tmp_path):
     want = Segmenter("smn", True, ffmpeg=None, device="cpu",
                      model_dir=models).segment_signal(sig)
     assert got == want
+
+
+@pytest.mark.parametrize("seconds", [2.0, 20.0, 130.0])
+def test_vbx_features_cuda_matches_cpu(dev, seconds):
+    from inaspeechsegmenter_tpu_torch.dsp.vbx import VbxFrontend, device_atol
+
+    sig = to_int16(speechlike(seconds, seed=int(seconds),
+                              silences=[(0.5, 1.2)])).astype(np.float64)
+    sig /= 32768.0
+    got = VbxFrontend(dev).features(sig)
+    assert got.device.type == "cuda"
+    want = VbxFrontend("cpu").features(sig).numpy()
+    got = got.cpu().numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=device_atol(len(want)))
+
+
+@pytest.mark.parametrize("block", ["bottleneck", "basic"])
+def test_resnet_cuda_matches_cpu(dev, block):
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+
+    net = ResNetXVector(block, (2, 2, 2, 2), 8, 64, 256)
+    net.load_jax_params(net.init_params(seed=1))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((5, 64, 144)).astype(np.float32))
+    n_valid = torch.tensor([144, 143, 100, 37, 10])
+    with torch.no_grad():
+        want = net(x).numpy()
+        want_m = net(x, n_valid).numpy()
+        net = net.to(dev)
+        got = net(x.to(dev)).cpu().numpy()
+        got_m = net(x.to(dev), n_valid.to(dev)).cpu().numpy()
+    for a, b in ((got, want), (got_m, want_m)):
+        rel = np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+        assert rel.max() <= 1e-4
+
+
+def test_vfs_cuda_matches_cpu(dev, tmp_path):
+    from inaspeechsegmenter_tpu_torch import VoiceFemininityScoring
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+    from inaspeechsegmenter_tpu_torch.models.synthetic import (
+        install_synthetic_models)
+
+    models = install_synthetic_models(str(tmp_path), size="small")
+    net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
+    params = net.init_params(seed=7)
+    sig = to_int16(voiced(20.0, seed=2, silences=[(4.0, 4.7), (13.2, 13.5)]))
+    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    got = VoiceFemininityScoring(
+        "vfp", device=dev, model_dir=models,
+        xvector_net=ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256),
+        xvector_params=params).score_signal(sig)
+    assert fe_kernel.sidekit_features.launches == fe0 + 1
+    assert tv.viterbi_scan.launches == vt0 + 2
+    want = VoiceFemininityScoring(
+        "vfp", device="cpu", model_dir=models, xvector_net=net,
+        xvector_params=params).score_signal(sig)
+    assert got == want and got[2] > 0

@@ -1,8 +1,8 @@
 """PyTorch port: runs without jax, pandas or h5py.
 
 The machine with the GPU has none of them, so the port must neither import
-them (at module level or on the segmentation path) nor name jax in an
-import anywhere in its sources.
+them (at module level, on the segmentation path or on the VFS path) nor
+name jax in an import anywhere in its sources.
 """
 
 import os
@@ -30,6 +30,14 @@ seg = port.Segmenter("smn", True, ffmpeg=None, device="cpu",
                      model_dir="models")
 lseg = seg("t.wav")
 assert lseg[0][1] == 0.0 and abs(lseg[-1][2] - 2.98) < 1e-9, lseg
+from inaspeechsegmenter_tpu_torch.cli import vfs  # noqa: F401
+from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
+scorer = port.VoiceFemininityScoring("bgc", device="cpu", model_dir="models",
+                                     xvector_net=net,
+                                     xvector_params=net.init_params(seed=0))
+score, dur, n = scorer("t.wav")
+assert dur >= 0 and n >= 0, (score, dur, n)
 bad = [m for m in ("jax", "jaxlib", "pandas", "h5py") if m in sys.modules]
 assert not bad, bad
 print("NO-JAX-OK")

@@ -39,5 +39,25 @@ def speechlike(seconds, seed, silences=(), quiet=0.25):
     return (0.2 * sig).astype(np.float32)
 
 
+def voiced(seconds, seed, silences=()):
+    """float32 signal of one-second tone sections over a -60 dB noise
+    floor: 800-1600 Hz tones (which the small synthetic VAD calls speech)
+    and 100-300 Hz tones (music, mostly), at levels within 6 dB."""
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * SR))
+    t = np.arange(n) / SR
+    sig = np.zeros(n)
+    for s0 in range(0, n, SR):
+        m = slice(s0, min(n, s0 + SR))
+        level = 10 ** rng.uniform(-0.6, 0.0)
+        f = rng.uniform(800, 1600) if rng.random() < 0.7 else \
+            rng.uniform(100, 300)
+        sig[m] = level * (np.sin(2 * np.pi * f * t[m])
+                          + 1e-3 * rng.standard_normal(m.stop - m.start))
+    for a, b in silences:
+        sig[int(a * SR):int(b * SR)] = 0.0
+    return (0.2 * sig).astype(np.float32)
+
+
 def to_int16(sig):
     return np.clip(np.rint(sig * 32768.0), -32768, 32767).astype(np.int16)
