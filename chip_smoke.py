@@ -11,16 +11,21 @@ Phases, each fatal on failure (non-zero exit, no final line):
 1. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: features on 60 s and 10 min seeded signals with digital
    silence (int16 and float32; finite masks equal, mspec within rtol/atol
-   1e-4, loge within 1e-5); Viterbi at K=2 and K=3 on random and
-   reset-heavy emissions, T = 180000 (states equal).  Kernel and plain
-   times are printed;
+   1e-4, loge within 1e-5); Viterbi at K=2 and K=3 on random, reset-heavy
+   and never-coalescing (constant) emissions (states equal; the constant
+   case is compared at T = 20000, where the plain loop is affordable, and
+   timed like the others at T = 180000).  Kernel and plain times and the
+   Viterbi's pass counts and walked chunks are printed;
 2. the main path: full-width synthetic weights (seeded), ``Segmenter("smn",
    detect_gender=True, ffmpeg=None, device="cuda")``, ``batch_process`` of
    three WAVs (2 s of silence, a 60 s and a 10 min seeded mix).  Checks the
    golden silence csv, the csv header, that segments tile each file, that
    both kernels were launched by that run, and that the 60 s labels agree
    with the port on ``device="cpu"`` on >= 99.9% of frames.  Prints per-file
-   wall time and real-time factor;
+   wall time and real-time factor; the warm 10 min file's stage split
+   (median of 5); its three decodes and its features kernel timed alone
+   with CUDA events (T, K, passes and walked chunks of each decode); and
+   the kernel launches per file;
 3. voice femininity scoring: a full-width ``ResNet101XVector`` (random
    weights from seed 0, saved as ``raw_81.npz``) and the synthetic MLP,
    ``VoiceFemininityScoring("bgc", ffmpeg=None, device="cuda")``,
@@ -36,8 +41,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    TFLOP/s and the peak device memory.
 
 The lines before the last are a JSON object of the kernels (launches
-summed over phases 2 and 3) and the card's name and power limit; the last
-line is the JSON result.  Imports nothing of JAX.
+summed over phases 2 and 3, launches per file, ``bound_ms``: the larger of
+the bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
+card's name and power limit; the last line is the JSON result.  Every time
+is on the card that line names.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -54,6 +61,9 @@ import numpy as np
 SR = 16000
 FEATURE_SECONDS = (60, 600)
 VITERBI_T = 180_000
+VITERBI_T_CONSTANT = 20_000   # the plain loop's length on the worst case
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 
 
 def log(msg):
@@ -106,6 +116,13 @@ def silences_every(seconds, period=20.0):
     for a in np.arange(5.0, seconds - 3.0, period):
         out += [(a, a + 1.0), (a + 1.3, a + 2.0)]
     return out
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps, torch):
@@ -165,52 +182,103 @@ def phase_features(torch, dev):
             times[(seconds, name)] = (ms, plain_ms)
             log(f"[kernels] sidekit_fe {seconds} s {name}: T={t} "
                 f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r}")
-    ms, plain_ms = times[(600, "int16")]
+    ms, plain_ms = times[(FEATURE_SECONDS[-1], "int16")]
+    bound_ms, bound_by = features_bound(FEATURE_SECONDS[-1] * SR, 2, consts)
     return {"name": "sidekit_fe", "route": "cuda",
             "source": "inaspeechsegmenter_tpu_torch/csrc/sidekit_fe.cu",
             "replaces": "inaspeechsegmenter_tpu/dsp/pallas_fe.py:188",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes the function",
             "shape": "600 s int16 signal, 59998 frames"}
+
+
+def features_bound(n_samples, sample_bytes, consts):
+    """Signal read once, 25 floats a frame written once; per frame the
+    FFT's operations: a 256-point complex radix-2 FFT (5 N log2 N), the
+    split (about 12 per bin), pre-emphasis and window (3 per sample), the
+    energy (2 per sample), the power (3 per bin), the mel bands (2 per
+    nonzero filter bin) and 25 logs."""
+    from inaspeechsegmenter_tpu_torch.dsp.sidekit import frame_count
+
+    t = frame_count(n_samples)
+    nnz = int((consts.band_range[:, 1] - consts.band_range[:, 0]).sum())
+    per_frame = 5 * 256 * 8 + 12 * 257 + 3 * 400 + 2 * 400 + 3 * 257 \
+        + 2 * nnz + 25
+    return bound(n_samples * sample_bytes + t * 25 * 4, t * per_frame)
+
+
+def viterbi_args(torch, dev, K, kind, T):
+    """Seeded decode inputs: ``random`` and ``resets`` Dirichlet emissions
+    with 0.1% and 30% resets; ``constant`` emissions whose score gaps grow
+    by 1e-5 a frame and never reach the transition cost, with no reset:
+    no chunk of the kernel forgets its entry (its worst case)."""
+    from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
+
+    rng = np.random.default_rng(100 * K + {"random": 1, "resets": 300,
+                                           "constant": 7}[kind])
+    if kind == "constant":
+        em = np.tile(np.log(1.0 / K) - 1e-5 * np.arange(K), (T, 1))
+        reset = np.zeros(T, bool)
+    else:
+        em = np.log(rng.dirichlet(np.ones(K), T))
+        reset = rng.random(T) < (0.001 if kind == "random" else 0.3)
+    reset[0] = True
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        em.astype(np.float32), diag_trans_exp(0.7, K).astype(np.float32),
+        np.full(K, np.log(1.0 / K), np.float32), reset)]
+
+
+def viterbi_bound(T, K):
+    """Emissions and reset flags read once, states written once; about
+    2K^2 + 2K adds and compares a frame."""
+    return bound(T * K * 4 + T + T * 4 + (K * K + K) * 4,
+                 T * (2 * K * K + 2 * K))
 
 
 def phase_viterbi(torch, dev):
     from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
 
-    timing, worst = None, 0
+    out = {}
+    worst = 0
     for K in (2, 3):
-        for kind, p_reset in (("random", 0.001), ("resets", 0.3)):
-            rng = np.random.default_rng(100 * K + int(p_reset * 1000))
-            em = np.log(rng.dirichlet(np.ones(K), VITERBI_T)).astype(
-                np.float32)
-            reset = rng.random(VITERBI_T) < p_reset
-            reset[0] = True
-            args = [torch.from_numpy(a).to(dev) for a in (
-                em, diag_trans_exp(0.7, K).astype(np.float32),
-                np.full(K, np.log(1.0 / K), np.float32), reset)]
-            states_k = tv.viterbi_scan(*args)
+        for kind in ("random", "resets", "constant"):
+            # the plain loop of a case that never coalesces is compared at
+            # a shorter length; every case is timed at VITERBI_T
+            t_cmp = VITERBI_T if kind != "constant" else VITERBI_T_CONSTANT
+            args = viterbi_args(torch, dev, K, kind, VITERBI_T)
+            cmp_args = viterbi_args(torch, dev, K, kind, t_cmp)
+            states_k = tv.viterbi_scan(*cmp_args)
             torch.cuda.synchronize()
+            cmp_counts = tv.pass_count(), tv.walked_chunks()
             t0 = time.perf_counter()
-            states_p = tv.viterbi_scan_plain(*args)
+            states_p = tv.viterbi_scan_plain(*cmp_args)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            sk, sp = states_k.cpu().numpy(), states_p.cpu().numpy()
-            n_diff = int((sk != sp).sum())
+            sk = states_k.cpu().numpy().astype(np.int64)
+            sp = states_p.cpu().numpy().astype(np.int64)
             worst = max(worst, int(np.abs(sk - sp).max()))
-            check(n_diff == 0, f"viterbi K={K} {kind}: {n_diff} states "
-                               "differ from the plain version")
-            check(len(np.unique(sp)) == K, "the decode visits every state")
+            n_diff = int((sk != sp).sum())
+            check(n_diff == 0, f"viterbi K={K} {kind}: {n_diff} states differ "
+                               "from the plain version")
+            if kind != "constant":
+                check(len(np.unique(sp)) == K, "the decode visits every state")
             ms = cuda_ms(lambda: tv.viterbi_scan(*args), 5, torch)
-            log(f"[kernels] viterbi K={K} {kind}: T={VITERBI_T} states "
-                f"equal, kernel_ms={ms!r} plain_ms={plain_ms!r}")
-            if K == 3 and kind == "random":
-                timing = (ms, plain_ms)
+            passes, walked = tv.pass_count(), tv.walked_chunks()
+            log(f"[kernels] viterbi K={K} {kind}: states equal at T={t_cmp} "
+                f"(passes, walked chunks: {cmp_counts}), T={VITERBI_T}: "
+                f"kernel_ms={ms!r} passes={passes} walked_chunks={walked} "
+                f"plain_ms(T={t_cmp})={plain_ms!r}")
+            out[(K, kind)] = (ms, plain_ms, passes)
+    ms, plain_ms, passes = out[(3, "random")]
+    bound_ms, bound_by = viterbi_bound(VITERBI_T, 3)
     return {"name": "viterbi", "route": "cuda",
             "source": "inaspeechsegmenter_tpu_torch/csrc/viterbi.cu",
             "replaces": "inaspeechsegmenter_tpu/decode/viterbi.py:222",
-            "max_abs_err": float(worst), "ms": timing[0],
-            "plain_ms": timing[1],
-            "shape": f"T={VITERBI_T}, K=3"}
+            "max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes the function",
+            "passes": passes, "shape": f"T={VITERBI_T}, K=3, random"}
 
 
 # --------------------------------------------------------------------------
@@ -292,6 +360,9 @@ def phase_main(torch, dev, workdir):
         log(f"[main] {name}: {len(sig) / SR!r} s audio, wall {wall!r} s, "
             f"rtf {len(sig) / SR / wall!r}")
 
+    launches_per_file = segmentation_split(torch, dev, seg,
+                                           wavs[list(files).index("mix600")])
+
     # the same 60 s file through the port's plain path on the CPU
     cpu = Segmenter("smn", True, ffmpeg=None, device="cpu", model_dir=models)
     a = frame_labels(seg(wavs[1]))
@@ -300,7 +371,90 @@ def phase_main(torch, dev, workdir):
     n_diff = int((a != b).sum())
     log(f"[main] mix60 cuda vs cpu: {n_diff} of {len(a)} frames differ")
     check(n_diff <= 0.001 * len(a), "cuda and cpu labels differ on >0.1%")
-    return launches, files, wavs, models
+    return launches, files, wavs, models, launches_per_file
+
+
+def segmentation_split(torch, dev, seg, wav, reps=5):
+    """The warm 10 min file stage by stage (a device sync after each stage,
+    the median of ``reps`` runs), the pipeline's steps in its own order; then
+    each of its decodes (captured from one ``seg(wav)``) and its features
+    kernel timed alone with CUDA events.  -> kernel launches per file."""
+    from inaspeechsegmenter_tpu_torch import pipeline
+    from inaspeechsegmenter_tpu_torch.audio.io import media2sig16kmono
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+    from inaspeechsegmenter_tpu_torch.segmenter import patch_counts
+
+    p = seg.pipeline
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    names = ("read WAV (host)", "upload + features kernel", "energy decode",
+             "VAD CNN", "VAD decode", "gender CNN", "gender decode")
+    runs = []
+    for _ in range(reps):
+        sig, t_read = timed(lambda: media2sig16kmono(wav, dtype="auto"))
+        (mspec, loge, t, difflen), t_fe = timed(
+            lambda: seg._sig2feats(sig, wav))
+        n_fp, n20 = patch_counts(t, difflen)
+        energy20, t_e = timed(lambda: p._energy_states20(loge[:t])[:n20])
+        probs_v, t_vc = timed(lambda: p._cnn_probs(
+            p.vad_model, mspec, n_fp, p.vad_nmel, p.vad_nout, energy20))
+        states_v, t_vd = timed(lambda: p._masked_viterbi(
+            probs_v, energy20, p.v_trans, p.v_init))
+        labels = torch.where(energy20, states_v + 1,
+                             torch.zeros_like(states_v)).to(torch.int32)
+        speech20 = labels == 1
+        probs_g, t_gc = timed(lambda: p._cnn_probs(
+            p.g_model, mspec, n_fp, p.g_nmel, p.g_nout, speech20))
+        states_g, t_gd = timed(lambda: p._masked_viterbi(
+            probs_g, speech20, p.g_trans, p.g_init))
+        labels = torch.where(speech20, states_g + 1 + p.vad_nout, labels)
+        runs.append((t_read, t_fe, t_e, t_vc, t_vd, t_gc, t_gd))
+    check(np.array_equal(labels.cpu().numpy(),
+                         p.run(mspec, loge, t, n_fp, n20).cpu().numpy()),
+          "the stage split's labels differ from the pipeline's")
+    med = np.median(np.array(runs), axis=0)
+    for name, ms in zip(names, med):
+        log(f"[main] mix600 stage {name}: {float(ms)!r} ms "
+            f"({100 * ms / med.sum():.1f}%)")
+    log(f"[main] mix600 stages sum {float(med.sum())!r} ms (median of "
+        f"{reps}); {t} frames, {n20} at 20 ms, "
+        f"{int(energy20.sum())} VAD patches, {int(speech20.sum())} gender "
+        "patches")
+
+    captured = []
+
+    def capture(*args):
+        captured.append([a.clone() for a in args])
+        return tv.viterbi_scan(*args)
+
+    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    pipeline.viterbi_scan = capture
+    try:
+        seg(wav)
+    finally:
+        pipeline.viterbi_scan = tv.viterbi_scan
+    per_file = {"sidekit_fe": fe_kernel.sidekit_features.launches - fe0,
+                "viterbi": tv.viterbi_scan.launches - vt0}
+    for name, args in zip(("energy", "VAD", "gender"), captured):
+        ms = cuda_ms(lambda: tv.viterbi_scan(*args), 10, torch)
+        T, K = args[0].shape
+        log(f"[main] mix600 {name} decode: T={T} K={K} kernel_ms={ms!r} "
+            f"passes={tv.pass_count()} walked_chunks={tv.walked_chunks()} "
+            f"resets={int(args[3].sum())}")
+    sig = torch.from_numpy(media2sig16kmono(wav, dtype="auto")).to(dev)
+    ms = cuda_ms(lambda: fe_kernel.sidekit_features(
+        sig, seg.frontend.consts), 20, torch)
+    log(f"[main] mix600 features kernel: {ms!r} ms for "
+        f"{t} frames ({sig.dtype}); launches per "
+        f"file {per_file}")
+    return per_file
 
 
 # --------------------------------------------------------------------------
@@ -405,8 +559,11 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     # the warm 10 min file: wall time and the stage split
     sig = files["mix600"]
     wav = wavs[list(files).index("mix600")]
+    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
     vfs(wav)
     torch.cuda.synchronize()
+    per_file = {"sidekit_fe": fe_kernel.sidekit_features.launches - fe0,
+                "viterbi": tv.viterbi_scan.launches - vt0}
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
@@ -461,8 +618,8 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     seg_dev = torch.from_numpy(seg).to(dev)
     fe_ms = cuda_ms(lambda: vfs.features.device_features(seg_dev), 10, torch)
     log(f"[vfs] VBx device features (plain PyTorch), 10 min: {fe_ms!r} ms "
-        f"for {fea.shape[0]} frames")
-    return launches
+        f"for {fea.shape[0]} frames; kernel launches per file {per_file}")
+    return launches, per_file
 
 
 def main():
@@ -489,10 +646,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kernels = [phase_features(torch, dev), phase_viterbi(torch, dev)]
     with tempfile.TemporaryDirectory() as workdir:
-        launches, files, wavs, models = phase_main(torch, dev, workdir)
-        launches_vfs = phase_vfs(torch, dev, workdir, files, wavs, models)
+        launches, files, wavs, models, per_file = phase_main(torch, dev,
+                                                             workdir)
+        launches_vfs, per_vfs_file = phase_vfs(torch, dev, workdir, files,
+                                               wavs, models)
     for k in kernels:
         k["launches"] = launches[k["name"]] + launches_vfs[k["name"]]
+        k["launches_per_file"] = {"segmentation": per_file[k["name"]],
+                                  "vfs": per_vfs_file[k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

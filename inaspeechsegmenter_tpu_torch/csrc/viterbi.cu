@@ -1,150 +1,499 @@
-// Viterbi decode with segment resets for Hopper (sm_90a).
+// Viterbi decode with segment resets for Hopper (sm_90a): an exact
+// chunk-parallel decode on a cooperative grid.
 //
 // Replaces the lax.scan decode inaspeechsegmenter_tpu/decode/viterbi.py::
-// _viterbi_scan (no Pallas kernel there: XLA compiled the scan).  Eager
-// PyTorch has no scan, and a Python loop over frames issues several launches
-// per 10 ms frame, three decodes per file.
+// _viterbi_scan (no Pallas kernel there: XLA compiled the scan), and the
+// port's first kernel, which ran the whole recursion and the backtrack on
+// one thread of one block: 180,000 dependent frames twice, about 24 ms.
 //
-// What bounds it on the H100: the serial dependence from frame to frame.
-// Work is K*K adds and compares per frame (K <= 3) and 4*K + 1 bytes of
-// input, so neither bandwidth nor arithmetic rate matters; latency does.
+// What bounds it on the H100: the dependence from frame to frame.  The work
+// is K*K adds and compares per frame (K <= 3) on 4*K + 1 bytes of input, so
+// the memory bound is about 1 us for a 10 min file; a single serial chain is
+// four orders of magnitude slower.  So the frames are spread over threads.
 //
-// Design: one block per sequence.  The frames go through shared memory in
-// tiles of 2048: all 256 threads load a tile's emissions and reset flags
-// with coalesced reads, thread 0 runs the recursion over the tile with the
-// K scores in registers, writing int8 back-pointers and per-frame argmaxes
-// to shared memory, and all threads store them.  So the serial thread only
-// ever waits on shared-memory latency.  The backtrack walks the tiles in
-// reverse the same way.
-//
-// Exactness: the float ops are those of _viterbi_scan, in the same order:
-// v[k] + trans[k][k'], column max with the first maximum winning (strict >),
-// em + max, em + init at a reset, then subtract the row max every frame.  A
-// NaN wins an argmax and propagates through a max, as in jnp.argmax and
-// jnp.max.  There is no multiply, so no FMA contraction can change a sum:
-// the states are bit-equal to the scan's.
+// Design (rank convergence: Maleki, Musuvathi and Mytkowicz, "Parallelizing
+// Dynamic Programming Through Rank Convergence", PPoPP 2014):
+//   1. Chunks.  T frames are split into P chunks of L >= CHUNK_MIN frames;
+//      thread c owns chunk c.  The chunks are spread over a cooperative grid
+//      of 256-thread blocks, at most one a SM, whose passes meet at grid
+//      barriers: one block holding every chunk would be issue-bound on its
+//      SM (about 60 instructions a frame for each thread).
+//   2. Speculative pass.  Every chunk runs the scan's exact per-frame ops
+//      from an entry vector: chunk 0 from the scan's v0 = 0, the others
+//      from a guess of zeros.  After each group of GROUP frames it stores
+//      the renormalised v (K floats; the checks below happen there), and
+//      per frame one code byte: the 2-bit back-pointer of each state in
+//      bits 0-5 (0b11 in bits 0-1 marks a reset frame, whose pointers are
+//      never read) and the 2-bit argmax in bits 6-7.
+//   3. Fix-up passes.  A chunk whose entry bits differ from its left
+//      neighbour's current exit re-runs from that exit and stops at the end
+//      of the first group of GROUP frames whose last new v is bit-equal
+//      (__float_as_uint, so NaN rows converge too) to the stored v of that
+//      frame.  Why this is exact: the recursion is deterministic, so from a
+//      frame where v equals the stored v every later frame of the chunk
+//      would recompute the stored values, and the pointers of that frame
+//      depend on the previous v and are written before the stop (chunks
+//      start on group edges).  So a chunk's stored frames and exit are
+//      always those of a run from its stored entry; chunk 0's entry is the
+//      scan's, so by induction chunks 0..p are exact after pass p.  The
+//      passes end when no exit that a neighbour reads changed.
+//   4. The serial walk.  On input that never coalesces (a long near-tie
+//      without a reset) exactness advances one chunk a pass, a grid barrier
+//      of about 4 us for every 16 frames, about twice what one thread takes
+//      to run them.  So after PASS_CAP passes one thread walks what is
+//      left: from the first chunk whose
+//      entry differs from its neighbour's exit (its block finds it, 256
+//      chunks at a time), it runs on from that neighbour's exit through
+//      the following chunks, writing each one's exit, until it stops on a
+//      stored row; then it looks for the next such chunk.  Everything left
+//      of the walker is exact by the same induction, so the walk is exact,
+//      and it costs at most T frames of one thread, without a barrier.
+//      A walked chunk costs about a third of a pass, but the walk takes
+//      separate stretches one after another where the passes take them
+//      side by side; so the cap is high: input whose stretches converge
+//      within 64 chunks (1,024 frames) never walks, and on one long
+//      stretch the passes add at most 64 barriers to the walk.
+//   5. Backtrack by exact map composition (integers only): each chunk
+//      composes its frames' K-element maps (x[t] = amax[t] at a segment end,
+//      else ptr[t+1][x[t+1]]) into one summary; a reverse scan of the
+//      summaries in shared memory and then over the block summaries gives
+//      each chunk the state after its last frame; each thread then walks
+//      its chunk backward writing states.
+//   6. The float ops are those of _viterbi_scan in the same order, written
+//      as __fadd_rn/__fsub_rn (there is no multiply to contract):
+//      v[k] + trans[k][k'], column max with the first maximum winning, em +
+//      max (em + init at a reset), minus the row max.  A NaN wins an argmax
+//      and propagates through a max, as in jnp.argmax and jnp.max.  The row
+//      argmax is that of the scores before the subtraction, 0 when their max
+//      is NaN (then every renormalised score is NaN): the same index.
+//   Emissions, resets and stored scores do not depend on the recursion: a
+//   run loads the next GROUP frames' while it computes the current ones, so
+//   the serial chain waits on register ops, not on memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TILE = 2048;
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;    // threads a block; also the most blocks,
+                                // whose summaries one block scans
+constexpr int CHUNK_MIN = 16;   // frames a chunk, at least (a multiple of
+                                // GROUP, as every chunk length is)
+constexpr int PASS_CAP = 64;    // fix-up passes before the serial walk
+constexpr int GROUP = 8;        // frames whose inputs are loaded ahead
 
 // jnp.argmax / jnp.max semantics over a running (best, arg) pair: a NaN
 // candidate wins unless a NaN already won; otherwise strictly greater wins.
 __device__ __forceinline__ bool takes_over(float cand, float best) {
-  return best == best && (cand != cand || cand > best);   // x != x: NaN
+  return best == best && !(cand <= best);
 }
 
 template <int K>
-__global__ void __launch_bounds__(THREADS)
-viterbi_kernel(const float* __restrict__ em, const uint8_t* __restrict__ reset,
-               const float* __restrict__ trans, const float* __restrict__ init,
-               long long T, int8_t* __restrict__ ptrs,
-               int8_t* __restrict__ amax, int32_t* __restrict__ states) {
-  __shared__ float s_em[TILE * K];
-  __shared__ uint8_t s_rs[TILE];
-  __shared__ int8_t s_ptr[TILE * K];
-  __shared__ int8_t s_am[TILE];
-  __shared__ int32_t s_st[TILE];
-  const int tid = threadIdx.x;
+__device__ __forceinline__ bool same_row(float4 a, const float (&b)[K]) {
+  const float r[3] = {a.x, a.y, a.z};
+  bool same = true;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    same = same && __float_as_uint(r[k]) == __float_as_uint(b[k]);
+  }
+  return same;
+}
 
-  float tr[K][K], ini[K], v[K];
+template <int K>
+__device__ __forceinline__ float4 row4(const float (&v)[K]) {
+  return make_float4(v[0], K > 1 ? v[K > 1 ? 1 : 0] : 0.0f,
+                     K > 2 ? v[K > 2 ? 2 : 0] : 0.0f, 0.0f);
+}
+
+template <int K>
+__device__ __forceinline__ void from4(float (&v)[K], float4 a) {
+  const float r[3] = {a.x, a.y, a.z};
 #pragma unroll
-  for (int a = 0; a < K; ++a) {
-    ini[a] = init[a];
-    v[a] = 0.0f;
+  for (int k = 0; k < K; ++k) v[k] = r[k];
+}
+
+// The identity map on K states, 2 bits per state.
+template <int K>
+__host__ __device__ constexpr uint32_t identity_map() {
+  return K == 1 ? 0u : K == 2 ? 0x04u : 0x24u;
+}
+
+// Every state mapped to state 1: a constant map is its value times this.
+template <int K>
+__host__ __device__ constexpr uint32_t ones_map() {
+  return K == 1 ? 0x1u : K == 2 ? 0x5u : 0x15u;
+}
+
+// One frame of the scan: updates v, returns the frame's code byte.
+template <int K>
+__device__ __forceinline__ uint32_t step(float (&v)[K], const float (&e)[K],
+                                         bool rst, const float (&tr)[K][K],
+                                         const float (&ini)[K]) {
+  float vn[K];
+  uint32_t ptrs = 0;
 #pragma unroll
-    for (int b = 0; b < K; ++b) tr[a][b] = trans[a * K + b];
+  for (int kp = 0; kp < K; ++kp) {
+    float best = __fadd_rn(v[0], tr[0][kp]);
+    uint32_t arg = 0;
+#pragma unroll
+    for (int k = 1; k < K; ++k) {
+      const float c = __fadd_rn(v[k], tr[k][kp]);
+      if (takes_over(c, best)) { best = c; arg = k; }
+    }
+    vn[kp] = __fadd_rn(e[kp], rst ? ini[kp] : best);
+    ptrs |= arg << (2 * kp);
+  }
+  float m = vn[0];
+  uint32_t am = 0;
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    if (takes_over(vn[k], m)) { m = vn[k]; am = k; }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = __fsub_rn(vn[k], m);
+  if (m != m) am = 0;
+  return (rst ? 3u : ptrs) | (am << 6);
+}
+
+struct Problem {
+  const float* em;        // (T, K), 16-byte aligned
+  const uint8_t* reset;   // (T,), 8-byte aligned
+  const float* trans;     // (K, K)
+  const float* init;      // (K,)
+  int T, L, P;            // frames, frames per chunk, chunks
+  float4* vbuf;           // (ceil(T / GROUP),) the renormalised scores (K
+                          // of x..z) after each group's last frame
+  uint8_t* code;          // (GROUP * ceil(T / GROUP),) code bytes
+  float4* exits;          // (3, P): a chunk's exit v by pass parity, then
+                          // its entry for the walk
+  int32_t* ctl;           // [0..2] per-pass "go on" flags (pass p uses p % 3
+                          // and clears (p + 1) % 3), [3] the pass count,
+                          // [4] chunks walked, [5..5+gridDim) block summaries
+  int32_t* states;        // (T,) out
+};
+
+// The inputs of the GROUP frames from t0 (t0 a multiple of GROUP): in
+// 16-byte loads while the group lies inside the sequence, else clamped to
+// its last frame.  With CHECK, the stored row of the group.
+template <int K, bool CHECK>
+struct Group {
+  float e[GROUP][K];
+  bool rst[GROUP];
+  float4 old;
+
+  __device__ __forceinline__ void load(const Problem& pr, int t0) {
+    if (t0 + GROUP <= pr.T) {
+      const float4* e4 = reinterpret_cast<const float4*>(pr.em) +
+                         (size_t)t0 * K / 4;
+      float f[GROUP * K];
+#pragma unroll
+      for (int i = 0; i < GROUP * K / 4; ++i) {
+        const float4 x = __ldg(e4 + i);
+        f[4 * i] = x.x;
+        f[4 * i + 1] = x.y;
+        f[4 * i + 2] = x.z;
+        f[4 * i + 3] = x.w;
+      }
+      const uint2 r = __ldg(reinterpret_cast<const uint2*>(pr.reset + t0));
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) e[g][k] = f[g * K + k];
+        rst[g] = (((g < 4 ? r.x : r.y) >> (8 * (g % 4))) & 0xffu) != 0;
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        const int t = min(t0 + g, pr.T - 1);
+        rst[g] = __ldg(pr.reset + t) != 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) e[g][k] = __ldg(pr.em + (size_t)t * K + k);
+      }
+    }
+    rst[0] = rst[0] || t0 == 0;
+    if (CHECK) old = __ldcg(pr.vbuf + min(t0, pr.T - 1) / GROUP);
+  }
+};
+
+// Runs frames [a, b) from v; a is a multiple of GROUP, as every chunk's
+// start is, and so is b but at the end of the sequence.  Whole groups run,
+// with no branch inside one: the last group of the sequence runs on past T
+// over copies of frame T - 1, and nothing reads what it computes there
+// (the code bytes past T, the last chunk's exit; its check still stops
+// only after every real frame of the group is written).  Writes each
+// frame's code byte, and the scores after each group's last frame.  With CHECK, stops at the end of the first group
+// whose new scores are bit-equal to the stored ones: from there on every
+// frame would recompute its stored values.  With exits (the walk), stores
+// v as the exit of every chunk it completes without stopping.  Returns the
+// last frame run if it stopped, else -1.
+template <int K, bool CHECK>
+__device__ __forceinline__ int run_frames(const Problem& pr, float (&v)[K],
+                                          int a, int b,
+                                          const float (&tr)[K][K],
+                                          const float (&ini)[K],
+                                          float4* exits) {
+  Group<K, CHECK> cur, nxt;
+  cur.load(pr, a);
+  for (int t0 = a; t0 < b; t0 += GROUP) {
+    nxt.load(pr, t0 + GROUP);
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      const uint32_t cd = step<K>(v, cur.e[g], cur.rst[g], tr, ini);
+      if (g < 4) {
+        lo |= cd << (8 * g);
+      } else {
+        hi |= cd << (8 * (g - 4));
+      }
+    }
+    *reinterpret_cast<uint2*>(pr.code + t0) = make_uint2(lo, hi);
+    const int te = min(t0 + GROUP, b);
+    if (CHECK && same_row<K>(cur.old, v)) return te - 1;
+    pr.vbuf[t0 / GROUP] = row4<K>(v);
+    if (exits != nullptr && (te % pr.L == 0 || te == pr.T)) {
+      exits[(te - 1) / pr.L] = row4<K>(v);
+    }
+    cur = nxt;
+  }
+  return -1;
+}
+
+// The serial walk, by block 0 (every thread calls it; thread 0 runs the
+// chunks).  exits: the last pass's exits; entries: each chunk's entry.
+template <int K>
+__device__ void walk(const Problem& pr, float4* exits, const float4* entries,
+                     const float (&tr)[K][K], const float (&ini)[K],
+                     int& s_next) {
+  const int P = pr.P;
+  int from = 1, walked = 0;
+  for (;;) {
+    // the first chunk from `from` on whose entry differs from its
+    // neighbour's exit; the chunks before it are exact
+    if (threadIdx.x == 0) s_next = P;
+    __syncthreads();
+    for (int base = from; base < P; base += THREADS) {
+      const int i = base + threadIdx.x;
+      float ent[K];
+      bool hit = false;
+      if (i < P) {
+        from4<K>(ent, __ldcg(entries + i));
+        hit = !same_row<K>(__ldcg(exits + i - 1), ent);
+      }
+      if (hit) atomicMin(&s_next, i);
+      if (__syncthreads_or(hit)) break;
+    }
+    const int first = s_next;
+    __syncthreads();
+    if (first >= P) break;
+    if (threadIdx.x == 0) {
+      // one run through the chunks from `first` on, until it stops on a
+      // stored row; the exit of the chunk where it stops stands
+      float v[K];
+      from4<K>(v, __ldcg(exits + first - 1));
+      const int stop = run_frames<K, true>(pr, v, first * pr.L, pr.T, tr, ini,
+                                           exits);
+      const int last = stop < 0 ? P - 1 : stop / pr.L;
+      walked += last - first + 1;
+      s_next = last + 1;
+    }
+    __syncthreads();
+    from = s_next;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) pr.ctl[4] = walked;
+}
+
+// (a o b)(j) = a(b(j))
+template <int K>
+__device__ __forceinline__ uint32_t compose(uint32_t a, uint32_t b) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    out |= ((a >> (2 * ((b >> (2 * j)) & 3u))) & 3u) << (2 * j);
+  }
+  return out;
+}
+
+// m_t o f, where m_t(j) = amax[t] if frame t ends a segment (the next code
+// marks a reset), else ptr[t+1][j].
+template <int K>
+__device__ __forceinline__ uint32_t after_frame(uint32_t cd, uint32_t nxt,
+                                                uint32_t f) {
+  if ((nxt & 3u) == 3u) return (cd >> 6) * ones_map<K>();
+  return compose<K>(nxt, f);
+}
+
+// s[i] <- s[i] o s[i+1] o ... o s[THREADS-1]
+template <int K>
+__device__ void suffix_scan(uint8_t* s) {
+  const int i = threadIdx.x;
+#pragma unroll 1
+  for (int d = 1; d < THREADS; d <<= 1) {
+    uint32_t val = s[i];
+    if (i + d < THREADS) val = compose<K>(val, s[i + d]);
+    __syncthreads();
+    s[i] = (uint8_t)val;
+    __syncthreads();
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(THREADS) viterbi_kernel(const Problem pr) {
+  const int T = pr.T, L = pr.L, P = pr.P;
+  float4* exits = pr.exits;
+  int32_t* ctl = pr.ctl;
+  __shared__ uint8_t s_map[THREADS];
+  __shared__ int s_next;
+  cg::grid_group grid = cg::this_grid();
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  const bool live = c < P;
+  const int a = live ? c * L : T;
+  const int b = live ? min(a + L, T) : T;
+
+  float tr[K][K], ini[K], v[K], ent[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    ini[i] = pr.init[i];
+    v[i] = ent[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) tr[i][j] = pr.trans[i * K + j];
   }
 
-  // ---- forward ----------------------------------------------------------
-  for (long long t0 = 0; t0 < T; t0 += TILE) {
-    const int n = (int)min((long long)TILE, T - t0);
-    for (int i = tid; i < n * K; i += THREADS) s_em[i] = em[t0 * K + i];
-    for (int i = tid; i < n; i += THREADS) s_rs[i] = reset[t0 + i];
-    __syncthreads();
-    if (tid == 0) {
-      for (int i = 0; i < n; ++i) {
-        const bool rst = s_rs[i] || (t0 + i == 0);
-        float vn[K];
-#pragma unroll
-        for (int kp = 0; kp < K; ++kp) {
-          float best = v[0] + tr[0][kp];
-          int arg = 0;
-#pragma unroll
-          for (int k = 1; k < K; ++k) {
-            const float c = v[k] + tr[k][kp];
-            if (takes_over(c, best)) { best = c; arg = k; }
-          }
-          const float e = s_em[i * K + kp];
-          vn[kp] = rst ? e + ini[kp] : e + best;
-          s_ptr[i * K + kp] = (int8_t)(rst ? kp : arg);
+  // ---- pass 0: speculative forward from v = 0 ---------------------------
+  if (lead) {
+    ctl[1] = 0;
+    ctl[4] = 0;
+  }
+  if (live) run_frames<K, false>(pr, v, a, b, tr, ini, nullptr);
+  float4 ex = row4<K>(v);
+  if (live) exits[c] = ex;
+  grid.sync();
+
+  // ---- fix-up passes -----------------------------------------------------
+  int pass = 0;
+  bool more = P > 1;
+  while (more && pass < PASS_CAP) {
+    ++pass;
+    if (lead) ctl[(pass + 1) % 3] = 0;
+    bool go_on = false;
+    if (live && c > 0) {
+      const float4 n4 = __ldcg(exits + (size_t)((pass - 1) & 1) * P + c - 1);
+      if (!same_row<K>(n4, ent)) {
+        from4<K>(ent, n4);
+        from4<K>(v, n4);
+        if (run_frames<K, true>(pr, v, a, b, tr, ini, nullptr) < 0) {
+          ex = row4<K>(v);
+          go_on = c < P - 1;
         }
-        float m = vn[0];
-#pragma unroll
-        for (int k = 1; k < K; ++k) if (takes_over(vn[k], m)) m = vn[k];
-#pragma unroll
-        for (int k = 0; k < K; ++k) v[k] = vn[k] - m;
-        float bv = v[0];
-        int ba = 0;
-#pragma unroll
-        for (int k = 1; k < K; ++k) if (takes_over(v[k], bv)) { bv = v[k]; ba = k; }
-        s_am[i] = (int8_t)ba;
       }
     }
-    __syncthreads();
-    for (int i = tid; i < n * K; i += THREADS) ptrs[t0 * K + i] = s_ptr[i];
-    for (int i = tid; i < n; i += THREADS) amax[t0 + i] = s_am[i];
-    __syncthreads();
+    if (live) exits[(size_t)(pass & 1) * P + c] = ex;
+    if (__syncthreads_or(go_on) && threadIdx.x == 0) {
+      atomicOr(ctl + pass % 3, 1);
+    }
+    grid.sync();
+    more = __ldcg(ctl + pass % 3) != 0;
+  }
+  if (lead) ctl[3] = pass + 1;
+
+  // ---- the serial walk, when the passes did not converge ----------------
+  if (more) {                          // the same on every thread
+    if (live) exits[(size_t)2 * P + c] = row4<K>(ent);
+    grid.sync();
+    if (blockIdx.x == 0) {
+      walk<K>(pr, exits + (size_t)(pass & 1) * P, exits + (size_t)2 * P, tr,
+              ini, s_next);
+    }
+    grid.sync();
   }
 
-  // ---- backtrack ----------------------------------------------------------
-  // x[t] = amax[t] where frame t ends a segment (t == T-1 or reset[t+1]),
-  // else ptrs[t+1][x[t+1]].
-  bool next_reset = true;
-  int next_val = 0;
-  const long long last0 = ((T - 1) / TILE) * TILE;
-  for (long long t0 = last0; t0 >= 0; t0 -= TILE) {
-    const int n = (int)min((long long)TILE, T - t0);
-    for (int i = tid; i < n * K; i += THREADS) s_ptr[i] = ptrs[t0 * K + i];
-    for (int i = tid; i < n; i += THREADS) {
-      s_am[i] = amax[t0 + i];
-      s_rs[i] = reset[t0 + i];
+  // ---- backtrack -----------------------------------------------------------
+  // F maps the state after the chunk's last frame to the state of its first.
+  const uint32_t next_code = b < T ? (uint32_t)__ldcg(pr.code + b) : 3u;
+  uint32_t f = identity_map<K>();
+  if (live) {
+    uint32_t nxt = next_code;
+    for (int t = b - 1; t >= a; --t) {
+      const uint32_t cd = __ldcg(pr.code + t);
+      f = after_frame<K>(cd, nxt, f);
+      nxt = cd;
     }
-    __syncthreads();
-    if (tid == 0) {
-      for (int i = n - 1; i >= 0; --i) {
-        const int x = next_reset ? s_am[i] : next_val;
-        s_st[i] = x;
-        next_reset = s_rs[i] != 0;
-        next_val = s_ptr[i * K + x];
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += THREADS) states[t0 + i] = s_st[i];
-    __syncthreads();
   }
+  s_map[threadIdx.x] = (uint8_t)f;
+  __syncthreads();
+  suffix_scan<K>(s_map);
+  const uint32_t later = threadIdx.x + 1 < THREADS ? s_map[threadIdx.x + 1]
+                                                   : identity_map<K>();
+  if (threadIdx.x == 0) ctl[5 + blockIdx.x] = s_map[0];
+  grid.sync();
+  // the state after this block's last frame: later blocks' summaries applied
+  // to the arbitrary state 0 after the sequence's last frame
+  s_map[threadIdx.x] = (uint8_t)(
+      threadIdx.x > blockIdx.x && threadIdx.x < gridDim.x
+          ? (uint32_t)__ldcg(ctl + 5 + threadIdx.x) : identity_map<K>());
+  __syncthreads();
+  suffix_scan<K>(s_map);
+  const uint32_t y = s_map[0] & 3u;
+  if (live) {
+    uint32_t x = (later >> (2 * y)) & 3u;
+    uint32_t nxt = next_code;
+    for (int t = b - 1; t >= a; --t) {
+      const uint32_t cd = __ldcg(pr.code + t);
+      x = (nxt & 3u) == 3u ? cd >> 6 : (nxt >> (2 * x)) & 3u;
+      pr.states[t] = (int32_t)x;
+      nxt = cd;
+    }
+  }
+}
+
+template <int K>
+cudaError_t launch(int blocks, cudaStream_t s, Problem pr) {
+  void* args[] = {&pr};
+  return cudaLaunchCooperativeKernel((const void*)viterbi_kernel<K>,
+                                     dim3(blocks), dim3(THREADS), args, 0, s);
 }
 
 }  // namespace
 
-// emission (T,K) f32, reset (T,) bool bytes, trans (K,K) f32, init (K,) f32;
-// scratch ptrs (T,K) and amax (T,) int8; states (T,) int32 out.
-// Returns cudaGetLastError().
+// emission (T,K) f32 (16-byte aligned), reset (T,) bool bytes (8-byte
+// aligned), trans (K,K) f32, init (K,) f32.  The chunks are spread over at
+// most max_blocks blocks of 256 threads (1 <= max_blocks <= 256; one per
+// SM).  Scratch, 16-byte aligned: vbuf (ceil(T/8), 4) f32, code
+// (8 * ceil(T/8),) bytes, exits (3, min(T, 256 * max_blocks), 4) f32, ctl
+// (5 + max_blocks,) int32; after the run ctl[3] is the pass count and ctl[4]
+// the chunks walked.  states (T,) int32 out.  Returns the launch's
+// cudaError_t.
 extern "C" int iss_viterbi(const float* em, const uint8_t* reset,
                            const float* trans, const float* init, long long T,
-                           int K, int8_t* ptrs, int8_t* amax, int32_t* states,
+                           int K, int max_blocks, float* vbuf, uint8_t* code,
+                           float* exits, int32_t* ctl, int32_t* states,
                            void* stream) {
-  if (T <= 0) return (int)cudaErrorInvalidValue;
+  if (T <= 0 || T > INT_MAX / 2 || max_blocks < 1 || max_blocks > THREADS ||
+      (uintptr_t)em % 16 != 0 || (uintptr_t)reset % 8 != 0 ||
+      (uintptr_t)vbuf % 16 != 0 || (uintptr_t)code % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long cap = (long long)max_blocks * THREADS;
+  long long L = (T + cap - 1) / cap;
+  if (L < CHUNK_MIN) L = CHUNK_MIN;
+  L = (L + GROUP - 1) / GROUP * GROUP;
+  Problem pr{em, reset, trans, init, (int)T, (int)L, (int)((T + L - 1) / L),
+             reinterpret_cast<float4*>(vbuf), code,
+             reinterpret_cast<float4*>(exits), ctl, states};
+  const int blocks = (pr.P + THREADS - 1) / THREADS;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   switch (K) {
-    case 1: viterbi_kernel<1><<<1, THREADS, 0, s>>>(em, reset, trans, init, T, ptrs, amax, states); break;
-    case 2: viterbi_kernel<2><<<1, THREADS, 0, s>>>(em, reset, trans, init, T, ptrs, amax, states); break;
-    case 3: viterbi_kernel<3><<<1, THREADS, 0, s>>>(em, reset, trans, init, T, ptrs, amax, states); break;
+    case 1: err = launch<1>(blocks, s, pr); break;
+    case 2: err = launch<2>(blocks, s, pr); break;
+    case 3: err = launch<3>(blocks, s, pr); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,10 @@ reference's decode of each segment on its own.  Scores are renormalized
 (running max subtracted) every frame.
 
 :func:`viterbi_scan` launches the CUDA kernel ``csrc/viterbi.cu`` for CUDA
-tensors (its source comment says what bounds it and how it is built) and
-runs :func:`viterbi_scan_plain`, a frame loop in numpy float32 with the
-same operations in the same order, for CPU tensors.  States are bit-equal
-between the two and to the JAX scan.
+tensors (its source comment says what bounds it, how its chunk-parallel
+design stays exact and how it is built) and runs :func:`viterbi_scan_plain`,
+a frame loop in numpy float32 with the same operations in the same order,
+for CPU tensors.  States are bit-equal between the two and to the JAX scan.
 """
 
 from __future__ import annotations
@@ -57,9 +57,19 @@ def viterbi_scan_plain(emission, transition, initial, reset):
     return torch.from_numpy(states).to(emission.device)
 
 
+def _max_blocks(dev):
+    """Blocks of the kernel's cooperative grid: one per SM, at most 256."""
+    return min(256, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def viterbi_scan(emission, transition, initial, reset):
     """emission (T, K) f32, transition (K, K), initial (K,), reset (T,) bool
-    (reset[0] is forced true) -> states (T,) int32 on the same device."""
+    (reset[0] is forced true) -> states (T,) int32 on the same device.
+
+    On CUDA the kernel spreads chunks of the sequence over a cooperative
+    grid of one block per SM; :func:`pass_count` and :func:`walked_chunks`
+    describe the last launch.
+    """
     if emission.device.type == "cpu":
         return viterbi_scan_plain(emission, transition, initial, reset)
     if emission.device.type != "cuda":
@@ -84,20 +94,47 @@ def viterbi_scan(emission, transition, initial, reset):
     states = torch.empty((T,), dtype=torch.int32, device=dev)
     if T == 0:
         return states
-    ptrs = torch.empty((T, K), dtype=torch.int8, device=dev)
-    amax = torch.empty((T,), dtype=torch.int8, device=dev)
+    # the kernel reads 8 frames at a time in 16-byte pieces
+    if emission.data_ptr() % 16:
+        emission = emission.clone()
+    if reset.data_ptr() % 8:
+        reset = reset.clone()
+    blocks = _max_blocks(dev)
+    groups = -(-T // 8)
+    vbuf = torch.empty((groups, 4), dtype=torch.float32, device=dev)
+    code = torch.empty((8 * groups,), dtype=torch.uint8, device=dev)
+    exits = torch.empty((3, min(T, 256 * blocks), 4), dtype=torch.float32,
+                        device=dev)
+    ctl = torch.empty((5 + blocks,), dtype=torch.int32, device=dev)
     lib = cuda_build.library()
     with torch.cuda.device(dev):
         rc = lib.iss_viterbi(
             emission.data_ptr(), reset.data_ptr(), transition.data_ptr(),
-            initial.data_ptr(), T, K, ptrs.data_ptr(), amax.data_ptr(),
+            initial.data_ptr(), T, K, blocks, vbuf.data_ptr(),
+            code.data_ptr(), exits.data_ptr(), ctl.data_ptr(),
             states.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("viterbi", rc)
     viterbi_scan.launches += 1
+    viterbi_scan.last_ctl = ctl
     return states
 
 
 viterbi_scan.launches = 0
+viterbi_scan.last_ctl = None
+
+
+def pass_count():
+    """Forward passes of the last kernel launch (the speculative one
+    included), a plain int; waits for that launch to finish."""
+    ctl = viterbi_scan.last_ctl
+    return None if ctl is None else int(ctl[3].item())
+
+
+def walked_chunks():
+    """Chunks that the last launch's serial walk re-ran (0 when its passes
+    converged), a plain int; waits for that launch to finish."""
+    ctl = viterbi_scan.last_ctl
+    return None if ctl is None else int(ctl[4].item())
 
 
 def viterbi_path(emission, transition, initial=None, reset=None):

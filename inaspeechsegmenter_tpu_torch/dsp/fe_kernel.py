@@ -3,8 +3,8 @@
 Port of the JAX package's only Pallas kernel,
 ``inaspeechsegmenter_tpu/dsp/pallas_fe.py::_kernel`` (the
 ``ISS_FRONTEND=pallas`` frontend there; the Segmenter's frontend here).
-The kernel is ``csrc/sidekit_fe.cu``; its source comment says what bounds
-it on the H100 and how its design answers that.
+The kernel is ``csrc/sidekit_fe.cu``, an FFT in shared memory; its source
+comment says what bounds it on the H100 and how its design answers that.
 
 :func:`sidekit_features` launches the kernel for a CUDA tensor and runs the
 plain PyTorch version (:func:`sidekit_features_plain`, the transcription of
@@ -19,7 +19,7 @@ import torch
 
 from ..utils import cuda_build
 from . import sidekit
-from .sidekit import HOP, NBINS, NMEL, WIN, FrontendConsts, frame_count
+from .sidekit import NBINS, NFFT, NMEL, WIN, FrontendConsts, frame_count
 
 
 def sidekit_features_plain(sig, consts: FrontendConsts):
@@ -28,14 +28,16 @@ def sidekit_features_plain(sig, consts: FrontendConsts):
 
 
 def _check_consts(consts: FrontendConsts, device):
-    shapes = {"window": (WIN,), "dcos": (WIN, NBINS), "dsin": (WIN, NBINS),
-              "fbank_t": (NBINS, NMEL)}
-    for name, shape in shapes.items():
+    shapes = {"window": ((WIN,), torch.float32),
+              "fbank_t": ((NBINS, NMEL), torch.float32),
+              "twiddle": ((NFFT // 2, 2), torch.float32),
+              "band_range": ((NMEL, 2), torch.int32)}
+    for name, (shape, dtype) in shapes.items():
         t = getattr(consts, name)
-        if (t.device != device or t.dtype != torch.float32
+        if (t.device != device or t.dtype != dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
-                f"frontend constant {name} must be a contiguous float32 "
+                f"frontend constant {name} must be a contiguous {dtype} "
                 f"{shape} tensor on {device}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
 
@@ -55,6 +57,8 @@ def sidekit_features(sig, consts: FrontendConsts):
                          f"{sig.dtype} {tuple(sig.shape)}")
     if not sig.is_contiguous():
         raise ValueError("signal must be contiguous")
+    if sig.data_ptr() % 16:
+        sig = sig.clone()        # the kernel copies 16-byte pieces
     _check_consts(consts, sig.device)
     t = frame_count(sig.shape[0])
     mspec = torch.empty((t, NMEL), dtype=torch.float32, device=sig.device)
@@ -65,8 +69,8 @@ def sidekit_features(sig, consts: FrontendConsts):
     with torch.cuda.device(sig.device):
         rc = lib.iss_sidekit_fe(
             sig.data_ptr(), int(sig.dtype == torch.int16), t,
-            consts.window.data_ptr(), consts.dcos.data_ptr(),
-            consts.dsin.data_ptr(), consts.fbank_t.data_ptr(),
+            consts.window.data_ptr(), consts.twiddle.data_ptr(),
+            consts.fbank_t.data_ptr(), consts.band_range.data_ptr(),
             mspec.data_ptr(), loge.data_ptr(),
             torch.cuda.current_stream(sig.device).cuda_stream)
     cuda_build.check_launch("sidekit_fe", rc)

@@ -38,6 +38,8 @@ class FrontendConsts(NamedTuple):
     dcos: torch.Tensor       # (WIN, NBINS)
     dsin: torch.Tensor       # (WIN, NBINS)
     fbank_t: torch.Tensor    # (NBINS, NMEL)
+    twiddle: torch.Tensor    # (NFFT // 2, 2) exp(-2 pi i k / NFFT), FFT kernel
+    band_range: torch.Tensor  # (NMEL, 2) int32 [first, last + 1) nonzero bins
 
 
 def frame_count(n_samples: int) -> int:
@@ -56,11 +58,28 @@ def _dft_matrices(win=WIN, nfft=NFFT):
     return (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
 
 
+def _twiddles(nfft=NFFT):
+    """exp(-2i*pi*k/nfft) for k < nfft/2, built in float64, as float32
+    (re, im) rows: the FFT kernel's twiddles and split-step factors."""
+    ang = -2.0 * np.pi * np.arange(nfft // 2) / nfft
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def _band_ranges(fbank):
+    """(NMEL, 2) int32 [first, last + 1) of each band's nonzero bins."""
+    out = np.zeros((fbank.shape[0], 2), np.int32)
+    for m, row in enumerate(fbank):
+        nz = np.flatnonzero(row)
+        if nz.size:
+            out[m] = nz[0], nz[-1] + 1
+    return out
+
+
 def frontend_consts(device, lowfreq=100, maxfreq=8000, fs=16000):
     fbank, _ = htk_triangular_fbank(fs, NFFT, lowfreq, maxfreq, 0, NMEL)
     dcos, dsin = _dft_matrices()
     arrays = (np.hanning(WIN).astype(np.float32), dcos, dsin,
-              np.ascontiguousarray(fbank.T))
+              np.ascontiguousarray(fbank.T), _twiddles(), _band_ranges(fbank))
     return FrontendConsts(*(torch.from_numpy(a).to(device) for a in arrays))
 
 

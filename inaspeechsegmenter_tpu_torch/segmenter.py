@@ -50,7 +50,8 @@ class DnnSegmenter:
     (segmenter.py:111-125).
     """
 
-    def __init__(self, batch_size=32, device="cpu", model_dir=None):
+    def __init__(self, batch_size=32, device="cuda", model_dir=None):
+        device = resolve_device(device)
         self.model = load_patch_model(self.model_fname, model_dir).to(device)
         self.model.eval()
         self.batch_size = batch_size

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source compiles in ONE ``nvcc`` call into one shared
+Every ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, loaded through ``ctypes`` (no PyTorch
 headers: a source that includes them takes minutes to build, these take
 seconds).  The library name carries a hash of the sources and flags, so an
@@ -27,7 +28,7 @@ import subprocess
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 
 def sources():
@@ -72,29 +73,39 @@ def build(verbose=False):
         return lib
     os.makedirs(out_dir, exist_ok=True)
     tmp = os.path.join(out_dir, f"tmp{os.getpid()}_{os.path.basename(lib)}")
-    cmd = [find_nvcc(), *NVCC_FLAGS]
+    nvcc = find_nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+         "-o", obj, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for src, obj in zip(sources(), objs)]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    if all(rc == 0 for _, rc in outs):
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        outs.append((link.stdout + link.stderr, link.returncode))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    text = "\n".join(out for out, _ in outs)
+    if any(rc != 0 for _, rc in outs):
+        raise RuntimeError(f"nvcc failed:\n{text}")
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print(text, flush=True)
     os.replace(tmp, lib)   # atomic: a concurrent loader never sees half a file
     return lib
 
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # (sig, is_int16, n_frames, window, dcos, dsin, fbank_t, mspec, loge,
-    #  stream) -> cudaError_t
+    # (sig, is_int16, n_frames, window, twiddle, fbank_t, band_range, mspec,
+    #  loge, stream) -> cudaError_t
     "iss_sidekit_fe": [_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P,
                        _P, _P, _P],
-    # (emission, reset, trans, init, T, K, ptrs, amax, states, stream)
-    "iss_viterbi": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
-                    _P, _P],
+    # (emission, reset, trans, init, T, K, max_blocks, vbuf, code, exits,
+    #  ctl, states, stream)
+    "iss_viterbi": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -101,8 +101,8 @@ class TorchResnetExtractor:
         256-d); it is moved to ``device``.
     """
 
-    def __init__(self, params=None, net=None, device="cpu", model_dir=None):
-        self.device = torch.device(device)
+    def __init__(self, params=None, net=None, device="cuda", model_dir=None):
+        self.device = resolve_device(device)
         self.net = net if net is not None else ResNet101XVector(
             feat_dim=FEAT_DIM, embed_dim=EMBED_DIM)
         if params is None:

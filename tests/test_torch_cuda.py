@@ -7,8 +7,9 @@ conftest cannot load there):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Features: finite masks equal, mspec within rtol/atol 1e-4, loge within
-1e-5 (float32 sums in another order).  Viterbi: states bit-equal,
-including exact ties, -inf and NaN scores.
+1e-5 (an FFT against the plain dense DFT: float32 sums in another order).
+Viterbi: states bit-equal, including exact ties, -inf and NaN scores and
+emissions that never coalesce (which the kernel's serial walk finishes).
 
 The VFS path has no hand kernel; its cases hold the CUDA run of the plain
 PyTorch code (cuDNN / cuBLAS, TF32 off) against the CPU run: VBx features
@@ -23,7 +24,7 @@ import torch
 from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
 from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
 from inaspeechsegmenter_tpu_torch.dsp import fe_kernel, sidekit
-from torch_parity_helpers import speechlike, to_int16, voiced
+from torch_parity_helpers import kernel_constant, speechlike, to_int16, voiced
 
 pytestmark = pytest.mark.cuda
 
@@ -37,7 +38,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n_samples", [400, 400 + 160 * 16, 16000 * 7 + 123])
+# 8 frames per kernel tile: a full tile and one frame more
+@pytest.mark.parametrize("n_samples", [400, 400 + 160 * 7, 400 + 160 * 8,
+                                       400 + 160 * 16, 16000 * 7 + 123])
 @pytest.mark.parametrize("kind", ["f32", "int16"])
 def test_features_kernel_matches_plain(dev, kind, n_samples):
     sig = speechlike(n_samples / 16000, seed=n_samples,
@@ -60,12 +63,30 @@ def test_features_kernel_matches_plain(dev, kind, n_samples):
     np.testing.assert_allclose(lk[finl], lp[finl], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("T", [1, 2047, 2048, 2 * 2048 + 5])
-@pytest.mark.parametrize("kind", ["random", "resets", "ties", "nan"])
-@pytest.mark.parametrize("K", [1, 2, 3])
-def test_viterbi_kernel_bit_equal(dev, K, kind, T):
+def test_features_kernel_takes_a_misaligned_view(dev):
+    """The kernel copies 16-byte pieces; the wrapper copies a signal whose
+    start is not 16-byte aligned."""
+    sig = torch.from_numpy(to_int16(speechlike(1.0, seed=3))).to(dev)[3:]
+    assert sig.is_contiguous() and sig.data_ptr() % 16
+    consts = sidekit.frontend_consts(dev)
+    mk, lk = fe_kernel.sidekit_features(sig, consts)
+    mp, lp = fe_kernel.sidekit_features_plain(sig, consts)
+    np.testing.assert_allclose(mk.cpu().numpy(), mp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+_PLAIN = {}
+
+
+def _viterbi_case(K, kind, T, dev):
     rng = np.random.default_rng(T + 7 * K)
-    if kind in ("ties", "nan"):
+    if kind == "constant":
+        # score gaps grow by 1e-5 a frame and never reach the transition
+        # cost: no chunk forgets its entry, the kernel's worst case
+        em = np.tile(np.log(1.0 / K) - 1e-5 * np.arange(K), (T, 1))
+    elif kind in ("ties", "nan"):
         with np.errstate(divide="ignore"):
             em = np.log(rng.integers(0, 3, size=(T, K)) / 2.0)
         if kind == "nan":
@@ -73,15 +94,64 @@ def test_viterbi_kernel_bit_equal(dev, K, kind, T):
             em[rng.random(T) < 0.01, 0] = np.nan
     else:
         em = np.log(rng.dirichlet(np.ones(K), T))
-    reset = rng.random(T) < (0.3 if kind == "resets" else 0.01)
+    p_reset = {"resets": 0.3, "constant": 0.0}.get(kind, 0.01)
+    reset = rng.random(T) < p_reset
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         em.astype(np.float32), diag_trans_exp(0.7, K).astype(np.float32),
         np.full(K, np.log(1.0 / K), np.float32), reset)]
+    key = (K, kind, T)
+    if key not in _PLAIN:
+        _PLAIN[key] = tv.viterbi_scan_plain(*args).cpu().numpy()
+    return args, _PLAIN[key]
+
+
+CHUNK_MIN = kernel_constant("viterbi.cu", "CHUNK_MIN")
+PASS_CAP = kernel_constant("viterbi.cu", "PASS_CAP")
+
+
+# chunks of 16 frames: T on both sides of a chunk edge, of a block's 256
+# chunks and of 1024 chunks
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 2047, 2048, 4096, 4097,
+                               2 * 2048 + 5, 1023 * 16 + 1, 180_000])
+@pytest.mark.parametrize("kind", ["random", "resets", "ties", "nan",
+                                  "constant"])
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_viterbi_kernel_bit_equal(dev, K, kind, T):
+    args, want = _viterbi_case(K, kind, T, dev)
     before = tv.viterbi_scan.launches
     got = tv.viterbi_scan(*args)
     torch.cuda.synchronize()
     assert tv.viterbi_scan.launches == before + 1
-    want = tv.viterbi_scan_plain(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    n_chunks = -(-T // CHUNK_MIN)
+    passes, walked = tv.pass_count(), tv.walked_chunks()
+    assert 1 <= passes <= min(n_chunks, PASS_CAP + 1)
+    assert 0 <= walked < n_chunks
+    if kind == "constant" and K > 1 and n_chunks > PASS_CAP + 1:
+        # never coalesces: the passes stop at the cap and the walk finishes
+        assert passes == PASS_CAP + 1 and walked > 0
+
+
+@pytest.mark.parametrize("kind", ["random", "constant"])
+def test_viterbi_kernel_long_chunks(dev, kind):
+    """T beyond 16 frames for every thread of the grid: longer chunks,
+    rounded up to whole groups of 8 frames (18 -> 24 on 132 SMs)."""
+    T = 600_001
+    args, want = _viterbi_case(3, kind, T, dev)
+    got = tv.viterbi_scan(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert tv.pass_count() <= PASS_CAP + 1
+
+
+def test_viterbi_kernel_takes_misaligned_views(dev):
+    """The kernel reads 16-byte pieces; the wrapper copies inputs whose
+    start is not aligned for them."""
+    (em, trans, init, reset), _ = _viterbi_case(3, "random", 5003, dev)
+    em, reset = em[3:], reset[3:]
+    assert em.data_ptr() % 16 and reset.data_ptr() % 8
+    assert em.is_contiguous() and reset.is_contiguous()
+    got = tv.viterbi_scan(em, trans, init, reset)
+    want = tv.viterbi_scan_plain(em, trans, init, reset)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 

@@ -94,3 +94,52 @@ def test_wrapper_rejects_other_devices():
     consts = sidekit.frontend_consts("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         fe_kernel.sidekit_features(sig, consts)
+
+
+def _fft_features(sig, consts):
+    """The kernel's formulation on the CPU: the power spectrum of a float32
+    FFT of each zero-padded 512-point frame (``torch.fft.rfft``, a stand-in
+    for the kernel's rounding), the mel bands summed over their nonzero
+    bins only, and the log."""
+    x = sidekit.to_float_signal(sig)
+    t = sidekit.frame_count(x.shape[0])
+    frames = x.unfold(0, sidekit.WIN, sidekit.HOP)[:t]
+    shifted = torch.cat([frames[:, :1], frames[:, :-1]], dim=1)
+    frames = frames - sidekit.PREFAC * shifted
+    loge = torch.log(torch.sum(frames * frames, dim=1))
+    spec = torch.fft.rfft(frames * consts.window, n=sidekit.NFFT)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    mel = torch.stack([power[:, lo:hi] @ consts.fbank_t[lo:hi, m]
+                       for m, (lo, hi) in enumerate(consts.band_range.tolist())],
+                      dim=1)
+    return torch.log(mel), loge
+
+
+@pytest.mark.parametrize("kind", ["int16", "float32"])
+def test_fft_formulation_within_kernel_tolerance(kind):
+    """The smoke run's seeded noise mix (a quarter of its sections 40-50 dB
+    down, stretches of digital silence) through the FFT formulation meets
+    the kernel's tolerance against the plain dense-DFT version."""
+    from chip_smoke import seeded_mix, silences_every, to_int16 as smoke_int16
+
+    base = seeded_mix(60, seed=60, silences=silences_every(60))
+    sig = torch.from_numpy(smoke_int16(base) if kind == "int16" else base)
+    consts = sidekit.frontend_consts("cpu")
+    m, lg = _fft_features(sig, consts)
+    m_ref, l_ref = fe_kernel.sidekit_features_plain(sig, consts)
+    fin = np.isfinite(m_ref.numpy())
+    assert fin.any() and not fin.all()
+    _assert_features_close(m.numpy(), lg.numpy(), m_ref.numpy(),
+                           l_ref.numpy())
+
+
+def test_band_ranges_cover_every_nonzero_filter_bin():
+    consts = sidekit.frontend_consts("cpu")
+    fb = consts.fbank_t.numpy()
+    for m, (lo, hi) in enumerate(consts.band_range.numpy()):
+        nz = np.flatnonzero(fb[:, m])
+        assert lo == nz[0] and hi == nz[-1] + 1
+    tw = consts.twiddle.numpy()
+    want = np.exp(-2j * np.pi * np.arange(256) / 512)
+    np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))

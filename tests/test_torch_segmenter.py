@@ -167,3 +167,19 @@ def test_cuda_device_without_card_raises(synthetic_model_dir):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Segmenter("smn", True, ffmpeg=None, device="cuda",
                   model_dir=synthetic_model_dir)
+
+
+@pytest.mark.parametrize("stage", ["SpeechMusic", "SpeechMusicNoise",
+                                   "Gender", "TorchResnetExtractor"])
+def test_stage_class_without_device_needs_a_card(synthetic_model_dir, stage):
+    """Public stage classes default to ``cuda``: built without a device on a
+    host with no card they raise instead of running on the CPU."""
+    import torch
+
+    from inaspeechsegmenter_tpu_torch import segmenter, vfs
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    cls = getattr(segmenter, stage, None) or getattr(vfs, stage)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(model_dir=synthetic_model_dir)

@@ -129,7 +129,7 @@ def test_window_layout_matches_jax(xparams, n_frames):
     duration = ((n_frames - 1) * 160 + 80) / 16000
     want = jvfs.JaxResnetExtractor(params=xparams, net=JaxResNet(*TINY))(
         "f", fea, duration)
-    got = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY))(
+    got = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu")(
         "f", torch.from_numpy(fea), duration)
     assert [(k, s) for k, s, _ in got] == [(k, s) for k, s, _ in want]
     assert got, "every tested length has at least one window"
@@ -143,7 +143,7 @@ def test_sub_batches_equal_one_batch(xparams, monkeypatch):
     batch size may take another convolution algorithm)."""
     fea = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (600, 64)).astype(np.float32))
-    xm = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY))
+    xm = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu")
     starts = list(range(0, 600 - 144, 24))
     want = xm.embeddings_from_features(fea, starts)
     monkeypatch.setenv("ISS_XVEC_BATCH", "4")
@@ -313,11 +313,11 @@ def test_xvector_weights_from_model_dir(tmp_path, xparams):
     assert registry.resolve_xvector_weights(str(tmp_path)).endswith(".npz")
     fea = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (300, 64)).astype(np.float32))
-    want = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY))(
+    want = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu")(
         "f", fea, 3.0)
     for name in ("raw_81.npz", "raw_81.pth"):
         got = tvfs.TorchResnetExtractor(
-            net=ResNetXVector(*TINY), model_dir=str(tmp_path))("f", fea, 3.0)
+            net=ResNetXVector(*TINY), device="cpu", model_dir=str(tmp_path))("f", fea, 3.0)
         for (_, _, a), (_, _, b) in zip(got, want, strict=True):
             np.testing.assert_array_equal(a, b)
         (tmp_path / name).unlink()

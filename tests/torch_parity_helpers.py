@@ -8,6 +8,9 @@ the 1e-4 tolerance, which a pure tone's far sidelobes would not allow.
 
 from __future__ import annotations
 
+import os
+import re
+
 import numpy as np
 
 SR = 16000
@@ -61,3 +64,13 @@ def voiced(seconds, seed, silences=()):
 
 def to_int16(sig):
     return np.clip(np.rint(sig * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def kernel_constant(source, name):
+    """The value of ``constexpr int <name>`` in the port's CUDA source
+    ``csrc/<source>``, so that a test follows the kernel's settings."""
+    from inaspeechsegmenter_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    with open(os.path.join(CSRC_DIR, source)) as fh:
+        m = re.search(rf"constexpr int {name} = (\d+);", fh.read())
+    return int(m.group(1))
