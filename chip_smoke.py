@@ -11,38 +11,63 @@ Phases, each fatal on failure (non-zero exit, no final line):
 1. each kernel against its plain PyTorch version on the card, at the main
    path's shapes: features on 60 s and 10 min seeded signals with digital
    silence (int16 and float32; finite masks equal, mspec within rtol/atol
-   1e-4, loge within 1e-5); Viterbi at K=2 and K=3 on random, reset-heavy
-   and never-coalescing (constant) emissions (states equal; the constant
-   case is compared at T = 20000, where the plain loop is affordable, and
-   timed like the others at T = 180000).  Kernel and plain times and the
-   Viterbi's pass counts and walked chunks are printed;
+   1e-4, loge within 1e-5), on one group-shaped int16 slice of the 10 min
+   signal ((3*4096 + 2)*160 samples, the streaming path's launch) within
+   the same tolerance, and every group launch of the 10 min signal
+   bit-equal to the same rows of its whole-file launch; Viterbi at K=2 and
+   K=3 on random, reset-heavy and never-coalescing (constant) emissions
+   (states equal; the constant case is compared at T = 20000, where the
+   plain loop is affordable, and timed like the others at T = 180000), and
+   with the online suffix decode's near-one-hot initial vector (states
+   equal).  Kernel and plain times and the Viterbi's pass counts and walked
+   chunks are printed;
 2. the main path: full-width synthetic weights (seeded), ``Segmenter("smn",
-   detect_gender=True, ffmpeg=None, device="cuda")``, ``batch_process`` of
-   three WAVs (2 s of silence, a 60 s and a 10 min seeded mix).  Checks the
-   golden silence csv, the csv header, that segments tile each file, that
-   both kernels were launched by that run, and that the 60 s labels agree
-   with the port on ``device="cpu"`` on >= 99.9% of frames.  Prints per-file
-   wall time and real-time factor; the warm 10 min file's stage split
-   (median of 5); its three decodes and its features kernel timed alone
-   with CUDA events (T, K, passes and walked chunks of each decode); and
-   the kernel launches per file;
+   detect_gender=True, ffmpeg=None, device="cuda")``, the prefetched
+   ``batch_process`` of three WAVs (2 s of silence, a 60 s and a 10 min
+   seeded mix).  Checks the golden silence csv, the csv header, that
+   segments tile each file, that both kernels were launched by that run,
+   and that the 60 s labels agree with the port on ``device="cpu"`` on >=
+   99.9% of frames.  Prints the batch wall time and real-time factor at the
+   default prefetch depth, the warm batch's wall time at depth 1 and at the
+   default depth in turns, per-file wall time and real-time factor; the
+   warm 10 min file's stage split (median of 5); its three decodes and its
+   features kernel timed alone with CUDA events (T, K, passes and walked
+   chunks of each decode); and the kernel launches per file;
 3. voice femininity scoring: a full-width ``ResNet101XVector`` (random
    weights from seed 0, saved as ``raw_81.npz``) and the synthetic MLP,
-   ``VoiceFemininityScoring("bgc", ffmpeg=None, device="cuda")``,
-   ``batch_score`` of phase 2's three WAVs.  Checks the csv header, the
-   silence golden row, that each mix's speech_duration equals the VAD's
-   speech total with nb_vectors > 0 and 0 <= score <= 1, and that both
-   kernels were launched by that run; then cuda against cpu on the first
-   15 s of the 60 s mix: VBx features within ``dsp.vbx.device_atol``,
-   ResNet101 embeddings of the same windows within a relative L2 error of
-   1e-3, MLP probabilities within 1e-4, and the end-to-end result equal
-   when the two VAD timelines are.  Prints, for the warm 10 min file, wall time, RTF,
-   the stage split, windows/s, ms per 256-window sub-batch, the ResNet's
-   TFLOP/s and the peak device memory.
+   ``VoiceFemininityScoring("bgc", ffmpeg=None, device="cuda")``, the
+   prefetched ``batch_score`` of phase 2's three WAVs (batch wall time and
+   real-time factor printed, and the warm batch at depth 1 and at the
+   default depth in turns).  Checks the csv header, the silence golden
+   row, that each mix's speech_duration equals the VAD's speech total with
+   nb_vectors > 0 and 0 <= score <= 1, and that both kernels were launched
+   by that run; then cuda against cpu on the first 15 s of the 60 s mix:
+   VBx features within ``dsp.vbx.device_atol``, ResNet101 embeddings of the
+   same windows within a relative L2 error of 1e-3, MLP probabilities
+   within 1e-4, and the end-to-end result equal when the two VAD timelines
+   are.  Prints, for the warm 10 min file, wall time, RTF, the stage split,
+   windows/s, ms per 256-window sub-batch, the ResNet's TFLOP/s and the
+   peak device memory;
+4. online and streaming, with phase 2's full-width Segmenter and phase 3's
+   scorer: ``pipeline.run_streaming`` against ``pipeline.run`` on the 10
+   min mix's features (frames that differ, at most 0.1%; warm times);
+   ``OnlineSegmenter`` fed the 10 min int16 mix in 0.5 s blocks with
+   ``current()`` polled after each (median and maximum poll time with a
+   device sync, commits and forced commits, the longest provisional
+   decode, ``finalize()`` against ``segment_signal`` with at most 0.1% of
+   frames differing, kernel launches per online file); ``follow_wav`` on
+   the 60 s mix written into a growing WAV by a writer thread (at most
+   0.1% of frames differing from ``seg(wav)``); ``OnlineVFS`` on the 60 s
+   mix (``finalize()`` equal to ``score_signal`` when the online and
+   offline VAD timelines are equal); and the force-commit disagreement: a
+   15 min mix with no inserted silence, ``COMMIT_MAXBACK = 16``, the frames
+   of the committed prefix that differ from ``finalize()`` and the forced
+   commits.
 
 The lines before the last are a JSON object of the kernels (launches
-summed over phases 2 and 3, launches per file, ``bound_ms``: the larger of
-the bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
+summed over the main-path runs of phases 2-4, launches per file for
+segmentation, VFS and the online segmenter, ``bound_ms``: the larger of the
+bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
 card's name and power limit; the last line is the JSON result.  Every time
 is on the card that line names.  Imports nothing of JAX.
 """
@@ -146,42 +171,67 @@ def phase_features(torch, dev):
     consts = sidekit.frontend_consts(dev)
     worst = 0.0
     times = {}
+
+    def compare(x, label):
+        """Kernel against plain on ``x`` -> (max_abs_err, kernel_ms,
+        plain_ms, T)."""
+        mk, lk = fe_kernel.sidekit_features(x, consts)
+        torch.cuda.synchronize()
+        mp, lp = fe_kernel.sidekit_features_plain(x, consts)
+        torch.cuda.synchronize()
+        mk, lk, mp, lp = (a.cpu().numpy() for a in (mk, lk, mp, lp))
+        t = sidekit.frame_count(x.shape[0])
+        check(mk.shape == mp.shape == (t, 24) and lk.shape == (t,),
+              f"feature shapes {mk.shape} {mp.shape}")
+        fin = np.isfinite(mp)
+        check(np.array_equal(np.isfinite(mk), fin),
+              f"mspec finite mask differs ({label})")
+        check(np.array_equal(np.isfinite(lk), np.isfinite(lp)),
+              f"loge finite mask differs ({label})")
+        check(fin.any() and not fin.all(),
+              "the test signal has silent and non-silent frames")
+        check(np.allclose(mk[fin], mp[fin], rtol=1e-4, atol=1e-4),
+              f"mspec differs ({label})")
+        finl = np.isfinite(lp)
+        check(np.allclose(lk[finl], lp[finl], rtol=1e-5, atol=1e-5),
+              f"loge differs ({label})")
+        err = max(float(np.abs(mk[fin] - mp[fin]).max()),
+                  float(np.abs(lk[finl] - lp[finl]).max()))
+        ms = cuda_ms(lambda: fe_kernel.sidekit_features(x, consts), 20,
+                     torch)
+        plain_ms = cuda_ms(
+            lambda: fe_kernel.sidekit_features_plain(x, consts), 20, torch)
+        log(f"[kernels] sidekit_fe {label}: T={t} max_abs_err={err!r} "
+            f"kernel_ms={ms!r} plain_ms={plain_ms!r}")
+        return err, ms, plain_ms
+
+    arrays = {}
     for seconds in FEATURE_SECONDS:
         base = seeded_mix(seconds, seed=seconds,
                           silences=silences_every(seconds))
         for name, arr in (("int16", to_int16(base)), ("float32", base)):
-            x = torch.from_numpy(arr).to(dev)
-            mk, lk = fe_kernel.sidekit_features(x, consts)
-            torch.cuda.synchronize()
-            mp, lp = fe_kernel.sidekit_features_plain(x, consts)
-            torch.cuda.synchronize()
-            mk, lk, mp, lp = (a.cpu().numpy() for a in (mk, lk, mp, lp))
-            t = sidekit.frame_count(len(arr))
-            check(mk.shape == mp.shape == (t, 24) and lk.shape == (t,),
-                  f"feature shapes {mk.shape} {mp.shape}")
-            fin = np.isfinite(mp)
-            check(np.array_equal(np.isfinite(mk), fin),
-                  f"mspec finite mask differs ({seconds} s {name})")
-            check(np.array_equal(np.isfinite(lk), np.isfinite(lp)),
-                  f"loge finite mask differs ({seconds} s {name})")
-            check(fin.any() and not fin.all(),
-                  "the test signal has silent and non-silent frames")
-            check(np.allclose(mk[fin], mp[fin], rtol=1e-4, atol=1e-4),
-                  f"mspec differs ({seconds} s {name})")
-            finl = np.isfinite(lp)
-            check(np.allclose(lk[finl], lp[finl], rtol=1e-5, atol=1e-5),
-                  f"loge differs ({seconds} s {name})")
-            err = max(float(np.abs(mk[fin] - mp[fin]).max()),
-                      float(np.abs(lk[finl] - lp[finl]).max()))
+            arrays[(seconds, name)] = arr
+            err, ms, plain_ms = compare(torch.from_numpy(arr).to(dev),
+                                        f"{seconds} s {name}")
             worst = max(worst, err)
-            ms = cuda_ms(lambda: fe_kernel.sidekit_features(x, consts), 20,
-                         torch)
-            plain_ms = cuda_ms(
-                lambda: fe_kernel.sidekit_features_plain(x, consts), 20,
-                torch)
             times[(seconds, name)] = (ms, plain_ms)
-            log(f"[kernels] sidekit_fe {seconds} s {name}: T={t} "
-                f"max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r}")
+
+    # the streaming and online path's launch: one group of chunks
+    arr = arrays[(FEATURE_SECONDS[-1], "int16")]
+    fe = fe_kernel.KernelSidekitFrontend(dev)
+    raw = arr[:(fe_kernel.GROUP_CHUNKS * sidekit.CHUNK + 2) * sidekit.HOP]
+    err, _, _ = compare(torch.from_numpy(raw).to(dev),
+                        f"group of {fe_kernel.GROUP_CHUNKS} chunks, int16")
+    worst = max(worst, err)
+    chunks, t = fe.mspec_loge_chunks(arr)
+    whole_m, whole_l, _ = fe.mspec_loge(arr)
+    m = torch.cat([c[0] for c in chunks])[:t]
+    lg = torch.cat([c[1] for c in chunks])[:t]
+    n_diff = int((m != whole_m).sum()) + int((lg != whole_l).sum())
+    log(f"[kernels] sidekit_fe group launches of the {FEATURE_SECONDS[-1]} s "
+        f"int16 signal ({len(chunks)} chunks): {n_diff} values differ from "
+        "the whole-file launch's rows")
+    check(n_diff == 0, "group rows are not bit-equal to whole-file rows")
     ms, plain_ms = times[(FEATURE_SECONDS[-1], "int16")]
     bound_ms, bound_by = features_bound(FEATURE_SECONDS[-1] * SR, 2, consts)
     return {"name": "sidekit_fe", "route": "cuda",
@@ -238,6 +288,7 @@ def viterbi_bound(T, K):
 
 def phase_viterbi(torch, dev):
     from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.decode.transitions import log_trans_exp
 
     out = {}
     worst = 0
@@ -270,6 +321,28 @@ def phase_viterbi(torch, dev):
                 f"kernel_ms={ms!r} passes={passes} walked_chunks={walked} "
                 f"plain_ms(T={t_cmp})={plain_ms!r}")
             out[(K, kind)] = (ms, plain_ms, passes)
+    # the online suffix decode's energy initial vector: log(1e-200) off
+    # the committed state, 0 on it; energy transitions, one reset
+    em, _, _, _ = viterbi_args(torch, dev, 2, "random", VITERBI_T)
+    trans = torch.from_numpy(
+        log_trans_exp(150, cost0=-5).astype(np.float32)).to(dev)
+    reset = torch.zeros(VITERBI_T, dtype=torch.bool, device=dev)
+    reset[0] = True
+    for state in (0, 1):
+        init = np.full(2, np.log(1e-200), np.float32)
+        init[state] = 0.0
+        init = torch.from_numpy(init).to(dev)
+        sk = tv.viterbi_scan(em, trans, init, reset)
+        torch.cuda.synchronize()
+        passes_1h = tv.pass_count()
+        sk = sk.cpu().numpy().astype(np.int64)
+        sp = tv.viterbi_scan_plain(em, trans, init, reset).cpu().numpy()
+        n_diff = int((sk != sp).sum())
+        worst = max(worst, int(np.abs(sk - sp).max()))
+        log(f"[kernels] viterbi K=2 near-one-hot initial state {state}: "
+            f"{n_diff} of {VITERBI_T} states differ, passes={passes_1h}")
+        check(n_diff == 0 and sk[0] == state,
+              "viterbi with a near-one-hot initial vector differs")
     ms, plain_ms, passes = out[(3, "random")]
     bound_ms, bound_by = viterbi_bound(VITERBI_T, 3)
     return {"name": "viterbi", "route": "cuda",
@@ -296,6 +369,27 @@ def read_csv(path):
     return text, lines[0], rows
 
 
+def warm_batch_walls(batch, wavs, outs, tag):
+    """Warm wall times of ``batch(wavs, outs)`` at prefetch depth 1 and at
+    the default depth, in turns (1, default, default, 1)."""
+    from inaspeechsegmenter_tpu_torch.utils.prefetch import prefetch_depth
+
+    walls = {}
+    for depth in ("1", None, None, "1"):
+        if depth is None:
+            os.environ.pop("ISS_PREFETCH", None)
+        else:
+            os.environ["ISS_PREFETCH"] = depth
+        key = prefetch_depth()
+        t0 = time.perf_counter()
+        _, n_ok, _, _ = batch(wavs, outs)
+        walls.setdefault(key, []).append(time.perf_counter() - t0)
+        check(n_ok == len(wavs), f"{tag}: a warm batch failed")
+    os.environ.pop("ISS_PREFETCH", None)
+    log(f"[{tag}] warm batch of {len(wavs)} files, walls by prefetch depth: "
+        f"{walls}")
+
+
 def phase_main(torch, dev, workdir):
     from inaspeechsegmenter_tpu_torch import Segmenter
     from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
@@ -304,6 +398,7 @@ def phase_main(torch, dev, workdir):
     from inaspeechsegmenter_tpu_torch.dsp.sidekit import frame_count
     from inaspeechsegmenter_tpu_torch.models.synthetic import (
         install_synthetic_models)
+    from inaspeechsegmenter_tpu_torch.utils.prefetch import prefetch_depth
 
     models = install_synthetic_models(os.path.join(workdir, "models"),
                                       seed=0, size="full")
@@ -332,8 +427,11 @@ def phase_main(torch, dev, workdir):
     batch_s = time.perf_counter() - t0
     launches = {"sidekit_fe": fe_kernel.sidekit_features.launches,
                 "viterbi": tv.viterbi_scan.launches}
-    log(f"[main] batch_process of {len(wavs)} files: {batch_s!r} s, "
-        f"statuses {[m[1:] for m in lmsg]}, launches {launches}")
+    audio_s = sum(len(sig) for sig in files.values()) / SR
+    log(f"[main] batch_process of {len(wavs)} files ({audio_s!r} s of audio, "
+        f"prefetch depth {prefetch_depth()}): {batch_s!r} s, rtf "
+        f"{audio_s / batch_s!r}, statuses {[m[1:] for m in lmsg]}, "
+        f"launches {launches}")
     check(n_ok == len(wavs), f"batch statuses {lmsg}")
     for name, n in launches.items():
         check(n > 0, f"the main path never launched the {name} kernel")
@@ -351,6 +449,8 @@ def phase_main(torch, dev, workdir):
                   f"silence csv {text!r}")
         labels = sorted({r[0] for r in rows})
         log(f"[main] {name}: {len(rows)} segments, labels {labels}")
+
+    warm_batch_walls(seg.batch_process, wavs, csvs, "main")
 
     # warm per-file wall time and real-time factor
     for (name, sig), wav in zip(files.items(), wavs):
@@ -371,7 +471,7 @@ def phase_main(torch, dev, workdir):
     n_diff = int((a != b).sum())
     log(f"[main] mix60 cuda vs cpu: {n_diff} of {len(a)} frames differ")
     check(n_diff <= 0.001 * len(a), "cuda and cpu labels differ on >0.1%")
-    return launches, files, wavs, models, launches_per_file
+    return seg, launches, files, wavs, models, launches_per_file
 
 
 def segmentation_split(torch, dev, seg, wav, reps=5):
@@ -477,6 +577,7 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     from inaspeechsegmenter_tpu_torch.dsp.vbx import (
         VbxFrontend, device_atol, host_segment)
     from inaspeechsegmenter_tpu_torch.models.resnet import ResNet101XVector
+    from inaspeechsegmenter_tpu_torch.utils.prefetch import prefetch_depth
     from inaspeechsegmenter_tpu_torch.vfs import WINLEN, save_resnet_npz
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -497,11 +598,15 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     batch_s = time.perf_counter() - t0
     launches = {"sidekit_fe": fe_kernel.sidekit_features.launches,
                 "viterbi": tv.viterbi_scan.launches}
-    log(f"[vfs] batch_score of {len(wavs)} files: {batch_s!r} s, statuses "
-        f"{[m[1:] for m in lmsg]}, launches {launches}")
+    audio_s = sum(len(sig) for sig in files.values()) / SR
+    log(f"[vfs] batch_score of {len(wavs)} files ({audio_s!r} s of audio, "
+        f"prefetch depth {prefetch_depth()}): {batch_s!r} s, rtf "
+        f"{audio_s / batch_s!r}, statuses {[m[1:] for m in lmsg]}, "
+        f"launches {launches}")
     check(n_ok == len(wavs), f"vfs batch statuses {lmsg}")
     for name, n in launches.items():
         check(n > 0, f"the VFS run never launched the {name} kernel")
+    warm_batch_walls(vfs.batch_score, wavs, csvs, "vfs")
 
     vad = Segmenter("smn", False, ffmpeg=None, device=dev, model_dir=models)
     for (name, sig), csv in zip(files.items(), csvs):
@@ -619,7 +724,200 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     fe_ms = cuda_ms(lambda: vfs.features.device_features(seg_dev), 10, torch)
     log(f"[vfs] VBx device features (plain PyTorch), 10 min: {fe_ms!r} ms "
         f"for {fea.shape[0]} frames; kernel launches per file {per_file}")
-    return launches, per_file
+    return vfs, launches, per_file
+
+
+# --------------------------------------------------------------------------
+ONLINE_BLOCK_SECONDS = 0.5
+FORCE_COMMIT_SECONDS = 900     # a 15 min mix with no inserted silence
+
+
+def frames_differ(a, b):
+    """Frames (20 ms) whose labels differ between two tilings of one file."""
+    a, b = frame_labels(a), frame_labels(b)
+    check(a.shape == b.shape, f"label counts differ: {a.shape} {b.shape}")
+    return int((a != b).sum()), len(a)
+
+
+def drive_online(torch, seg, sig):
+    """Feed ``sig`` to an ``OnlineSegmenter`` in 0.5 s blocks, polling
+    ``current()`` after each with a device sync, then finalize.  -> the
+    object, its final labels and the poll statistics."""
+    from inaspeechsegmenter_tpu_torch import OnlineSegmenter
+    from inaspeechsegmenter_tpu_torch.dsp.sidekit import CHUNK
+
+    online = OnlineSegmenter(seg)
+    decodes = []                    # frames of each provisional decode
+    pipe = seg.pipeline
+    real = pipe.stream_decode
+
+    def recording(chunks, probs, n_frames, *args, **kwargs):
+        decodes.append(n_frames)
+        return real(chunks, probs, n_frames, *args, **kwargs)
+
+    pipe.stream_decode = recording
+    polls, feeds = [], []
+    commits = forced = short_polls = 0
+    run = online.COMMIT_RUN
+    step = int(ONLINE_BLOCK_SECONDS * SR)
+    try:
+        for pos in range(0, len(sig), step):
+            before = online._commit
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            online.feed(sig[pos:pos + step])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lseg = online.current()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            feeds.append((t1 - t0) * 1e3)
+            polls.append((t2 - t1) * 1e3)
+            # under two chunks a poll segments the whole buffered prefix
+            short_polls += online.chunks_ready < 2
+            if online._commit != before:
+                # a commit at a chunk boundary whose COMMIT_RUN frames on
+                # each side are not all noEnergy was forced
+                commits += 1
+                f = online._commit * (CHUNK // 2)
+                names = frame_labels(lseg)
+                forced += bool((names[f - run:f + run] != "noEnergy").any())
+        n_provisional = len(decodes)
+        final = online.finalize()
+        torch.cuda.synchronize()
+    finally:
+        del pipe.stream_decode
+    return online, final, {
+        "polls": len(polls), "poll_ms_median": float(np.median(polls)),
+        "poll_ms_max": float(np.max(polls)),
+        "short_prefix_polls": short_polls,
+        "feed_ms_max": float(np.max(feeds)),
+        "provisional_decodes": n_provisional,
+        "longest_decode_frames": max(decodes[:n_provisional], default=0),
+        "commits": commits, "forced_commits": forced}
+
+
+def growing_wav_writer(path, sig, piece, delay):
+    """A thread writing a WAV as a recorder does: a header with bogus
+    sizes, then ``piece`` samples every ``delay`` seconds."""
+    import struct
+    import threading
+
+    fmt = struct.pack("<HHIIHH", 1, 1, SR, 2 * SR, 2, 16)
+    header = (b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE" + b"fmt "
+              + struct.pack("<I", len(fmt)) + fmt + b"data"
+              + struct.pack("<I", 0xFFFFFFFF))
+
+    def run():
+        with open(path, "wb") as f:
+            f.write(header)
+            f.flush()
+            for pos in range(0, len(sig), piece):
+                time.sleep(delay)
+                f.write(sig[pos:pos + piece].astype("<i2").tobytes())
+                f.flush()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def phase_online(torch, dev, workdir, seg, vfs, files, wavs):
+    """Streaming against fused, the online segmenter, follow mode and the
+    online VFS at full width.  -> the kernel launches of the main path's
+    run, one online 10 min file."""
+    from inaspeechsegmenter_tpu_torch import OnlineVFS
+    from inaspeechsegmenter_tpu_torch.annotations import SpeechTimeline
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+    from inaspeechsegmenter_tpu_torch.online import follow_wav
+
+    sig = files["mix600"]
+    p = seg.pipeline
+    chunks, t = seg.frontend.mspec_loge_chunks(sig)
+    mspec, loge, _ = seg.frontend.mspec_loge(sig)
+    n20 = (t + 1) // 2
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for _ in range(2):                      # the second run is warm
+        ids_s, ms_s = timed(lambda: p.run_streaming(chunks, t, t, n20))
+        ids_f, ms_f = timed(lambda: p.run(mspec, loge, t, t, n20))
+    n_diff = int((ids_s != ids_f).sum())
+    log(f"[online] mix600 run_streaming vs run: {n_diff} of {n20} frames "
+        f"differ; warm run_streaming {ms_s!r} ms ({len(chunks)} chunks), "
+        f"run {ms_f!r} ms")
+    check(n_diff <= 0.001 * n20, "streaming and fused labels differ on >0.1%")
+
+    # the main path of this phase: one online file, counted
+    fe_kernel.sidekit_features.launches = 0
+    tv.viterbi_scan.launches = 0
+    t0 = time.perf_counter()
+    online, final, stats = drive_online(torch, seg, sig)
+    wall = time.perf_counter() - t0
+    per_file = {"sidekit_fe": fe_kernel.sidekit_features.launches,
+                "viterbi": tv.viterbi_scan.launches}
+    n_diff, n_fr = frames_differ(final, seg.segment_signal(sig))
+    log(f"[online] mix600 OnlineSegmenter, {ONLINE_BLOCK_SECONDS} s blocks: "
+        f"{stats}, wall {wall!r} s; finalize vs segment_signal: {n_diff} of "
+        f"{n_fr} frames differ; kernel launches {per_file}")
+    check(n_diff <= 0.001 * n_fr, "online finalize differs on >0.1%")
+    for name, n in per_file.items():
+        check(n > 0, f"the online path never launched the {name} kernel")
+
+    # follow mode on the 60 s mix, written by a recorder thread
+    path = os.path.join(workdir, "follow60.wav")
+    sig60 = files["mix60"]
+    writer = growing_wav_writer(path, sig60, piece=SR // 2, delay=0.02)
+    t0 = time.perf_counter()
+    got = follow_wav(path, seg, idle_timeout=1.0, poll=0.05)
+    wall = time.perf_counter() - t0
+    writer.join(timeout=60)
+    check(not writer.is_alive(), "the WAV writer thread did not finish")
+    n_diff, n_fr = frames_differ(got, seg(wavs[list(files).index("mix60")]))
+    log(f"[online] follow_wav mix60: {len(got)} segments in {wall!r} s "
+        f"(idle timeout 1.0 s); vs seg(wav): {n_diff} of {n_fr} frames "
+        "differ")
+    check(n_diff <= 0.001 * n_fr, "follow_wav differs from seg(wav) on >0.1%")
+
+    # the online VFS on the 60 s mix
+    ov = OnlineVFS(vfs, "mix60")
+    prov = []
+    for pos in range(0, len(sig60), 5 * SR):
+        ov.feed(sig60[pos:pos + 5 * SR])
+        prov.append(ov.current())
+    got = ov.finalize()
+    want = vfs.score_signal(sig60, "mix60")
+    same_vad = (SpeechTimeline.from_vad(ov.vad_online.finalize()).intervals
+                == SpeechTimeline.from_vad(
+                    vfs.vad.segment_signal(sig60)).intervals)
+    log(f"[online] OnlineVFS mix60: provisional {prov[-3:]}, finalize {got}, "
+        f"score_signal {want} (online and offline VAD timelines "
+        f"{'equal' if same_vad else 'differ'})")
+    if same_vad:
+        check(got == want, "OnlineVFS.finalize differs from score_signal")
+
+    # the force-commit disagreement on unbroken audio
+    sig900 = to_int16(seeded_mix(FORCE_COMMIT_SECONDS,
+                                 seed=FORCE_COMMIT_SECONDS))
+    online, final, stats = drive_online(torch, seg, sig900)
+    committed = np.array(seg.labels, object)[online._committed_ids]
+    final_names = frame_labels(final)
+    n_diff = int((committed != final_names[:len(committed)]).sum())
+    first = (np.flatnonzero(committed != final_names[:len(committed)])[:5]
+             .tolist())
+    log(f"[online] force-commit, {FORCE_COMMIT_SECONDS} s without inserted "
+        f"silence, COMMIT_MAXBACK={online.COMMIT_MAXBACK}: {stats}; "
+        f"{n_diff} of {len(committed)} committed frames differ from "
+        f"finalize() (first at frames {first})")
+    n_diff, n_fr = frames_differ(final, seg.segment_signal(sig900))
+    check(n_diff <= 0.001 * n_fr, "online finalize differs on >0.1% (15 min)")
+    return per_file
 
 
 def main():
@@ -646,14 +944,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kernels = [phase_features(torch, dev), phase_viterbi(torch, dev)]
     with tempfile.TemporaryDirectory() as workdir:
-        launches, files, wavs, models, per_file = phase_main(torch, dev,
-                                                             workdir)
-        launches_vfs, per_vfs_file = phase_vfs(torch, dev, workdir, files,
-                                               wavs, models)
+        seg, launches, files, wavs, models, per_file = phase_main(
+            torch, dev, workdir)
+        vfs, launches_vfs, per_vfs_file = phase_vfs(torch, dev, workdir,
+                                                    files, wavs, models)
+        per_online_file = phase_online(torch, dev, workdir, seg, vfs, files,
+                                       wavs)
     for k in kernels:
-        k["launches"] = launches[k["name"]] + launches_vfs[k["name"]]
+        k["launches"] = (launches[k["name"]] + launches_vfs[k["name"]]
+                         + per_online_file[k["name"]])
         k["launches_per_file"] = {"segmentation": per_file[k["name"]],
-                                  "vfs": per_vfs_file[k["name"]]}
+                                  "vfs": per_vfs_file[k["name"]],
+                                  "online": per_online_file[k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@
 Flag-compatible with the JAX package's ``cli/segment.py`` (reference
 scripts/ina_speech_segmenter.py:45-84) — -i input globs, -o output dir,
 -s batch size, -d vad engine, -g detect gender, -b ffmpeg binary, -e
-export format, -r energy ratio — plus ``--device`` (default cuda; the run
-fails rather than falling back to the CPU).  Only ``-b none`` (16 kHz WAV
-input, the default here) is ported; ``--parallel`` and ``--follow`` are
-not offered yet.
+export format, -r energy ratio, --follow / --follow_idle — plus
+``--device`` (default cuda; the run fails rather than falling back to the
+CPU).  Only ``-b none`` (16 kHz WAV input, the default here) is ported;
+``--parallel`` waits for the multi-GPU engine.
 
     python -m inaspeechsegmenter_tpu_torch.cli.segment -i in.wav -o outdir \\
         -b none --device cuda
+    python -m inaspeechsegmenter_tpu_torch.cli.segment -i growing.wav \\
+        -o outdir --follow --follow_idle 10
 """
 
 from __future__ import annotations
@@ -49,6 +51,14 @@ def build_parser():
     parser.add_argument('-r', '--energy_ratio', default=0.03, type=float)
     parser.add_argument('--device', default='cuda',
                         help="Torch device, 'cuda' (default) or 'cpu'.")
+    parser.add_argument('--follow', action='store_true',
+                        help='Tail ONE growing PCM16 mono 16 kHz WAV file '
+                             '(a recording in progress): segment appended '
+                             'audio incrementally, finalize + export when '
+                             'the file stops growing.')
+    parser.add_argument('--follow_idle', type=float, default=10.0,
+                        help='Seconds without file growth before --follow '
+                             'finalizes.')
     return parser
 
 
@@ -60,9 +70,16 @@ def main(argv=None):
         print('Disabling ffmpeg. Make sure your audio files are already '
               'sampled at 16kHz.')
         ffmpeg = None
-    input_files = []
-    for e in args.input:
-        input_files += [e] if e.startswith('http') else glob.glob(e)
+    if args.follow:
+        if len(args.input) != 1:
+            parser.error('--follow takes exactly one input file')
+        # the followed recording may not exist YET (a recorder about to
+        # start writing): no glob expansion
+        input_files = list(args.input)
+    else:
+        input_files = []
+        for e in args.input:
+            input_files += [e] if e.startswith('http') else glob.glob(e)
     if not input_files:
         parser.error('No existing media selected for analysis! Bad values '
                      'provided to -i (%s)' % args.input)
@@ -81,8 +98,33 @@ def main(argv=None):
                      + args.export_format) for e in input_files]
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
+        if args.follow:
+            return _follow(seg, input_files[0], output_files[0], args)
         return seg.batch_process(input_files, output_files, verbose=True,
                                  output_format=args.export_format)
+
+
+def _follow(seg, path, dst, args):
+    """Tail ``path`` and export its final labels to ``dst`` -> lseg."""
+    from inaspeechsegmenter_tpu_torch.export import seg2csv, seg2textgrid
+    from inaspeechsegmenter_tpu_torch.online import follow_wav
+
+    def report(o):
+        if o.chunks_ready >= 2:
+            # the provisional decode reuses cached emissions; before two
+            # chunks exist current() would re-segment the whole buffered
+            # prefix on every tick, so print cheap progress instead
+            print(f'[follow] {o.seconds_fed:.0f}s fed, '
+                  f'{len(o.current())} provisional segments', flush=True)
+        else:
+            print(f'[follow] {o.seconds_fed:.0f}s fed '
+                  '(buffering first chunks)', flush=True)
+
+    lseg = follow_wav(path, seg, idle_timeout=args.follow_idle,
+                      on_update=report)
+    {'csv': seg2csv, 'textgrid': seg2textgrid}[args.export_format](lseg, dst)
+    print(f'[follow] finalized {len(lseg)} segments -> {dst}', flush=True)
+    return lseg
 
 
 if __name__ == '__main__':

@@ -2,15 +2,17 @@
 
 Flag-compatible with the JAX package's ``cli/vfs.py`` for the flags this
 port supports — -i input globs, -o output dir, -c model criteria, -b ffmpeg
-binary, --skipifexist, --nbtry — plus ``--device`` (default cuda; the run
-fails rather than falling back to the CPU).  ``-b`` accepts only ``none``
-(16 kHz WAV input, the default here); ``--parallel`` and ``--follow`` are not
-offered yet.  Writes one tab-separated csv per input with columns
-``score / speech_duration / nb_vectors``; model weights come from
-``$ISS_TPU_MODEL_DIR``.
+binary, --skipifexist, --nbtry, --follow / --follow_idle — plus
+``--device`` (default cuda; the run fails rather than falling back to the
+CPU).  ``-b`` accepts only ``none`` (16 kHz WAV input, the default here);
+``--parallel`` waits for the multi-GPU engine.  Writes one tab-separated
+csv per input with columns ``score / speech_duration / nb_vectors``; model
+weights come from ``$ISS_TPU_MODEL_DIR``.
 
     python -m inaspeechsegmenter_tpu_torch.cli.vfs -i in.wav -o outdir \\
         -c bgc -b none --device cuda
+    python -m inaspeechsegmenter_tpu_torch.cli.vfs -i growing.wav -o outdir \\
+        --follow --follow_idle 10
 """
 
 from __future__ import annotations
@@ -51,6 +53,13 @@ def build_parser():
                         help='Attempts per file before reporting an error.')
     parser.add_argument('--device', default='cuda',
                         help="Torch device, 'cuda' (default) or 'cpu'.")
+    parser.add_argument('--follow', action='store_true',
+                        help='Tail ONE growing PCM16 mono 16 kHz WAV file '
+                             '(a recording in progress): print provisional '
+                             'scores, write the csv when it stops growing.')
+    parser.add_argument('--follow_idle', type=float, default=10.0,
+                        help='Seconds without file growth before --follow '
+                             'finalizes.')
     return parser
 
 
@@ -59,9 +68,18 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.ffmpeg_binary.lower() not in ('none', ''):
         parser.error("only -b none (16 kHz WAV input) is ported")
-    input_files = []
-    for e in args.input:
-        input_files += glob.glob(e)
+    if args.follow:
+        if len(args.input) != 1:
+            parser.error('--follow takes exactly one input file')
+        if args.skipifexist:
+            parser.error('--skipifexist does not combine with --follow '
+                         '(a live tail always writes its csv at finalize)')
+        # the followed recording may not exist YET: no glob expansion
+        input_files = list(args.input)
+    else:
+        input_files = []
+        for e in args.input:
+            input_files += glob.glob(e)
     if not input_files:
         parser.error('No existing media selected for analysis! Bad values '
                      'provided to -i (%s)' % args.input)
@@ -79,9 +97,36 @@ def main(argv=None):
         for e in input_files]
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
+        if args.follow:
+            return _follow(scorer, input_files[0], output_files[0], args)
         return scorer.batch_score(input_files, output_files, verbose=True,
                                   skipifexist=args.skipifexist,
                                   nbtry=args.nbtry)
+
+
+def _follow(scorer, path, dst, args):
+    """Tail ``path`` and write its final score csv to ``dst`` -> result."""
+    from inaspeechsegmenter_tpu_torch.online import follow_wav_vfs
+    from inaspeechsegmenter_tpu_torch.vfs import score_to_csv
+
+    def report(o):
+        fed = o.seconds_fed
+        if o.vad_online.chunks_ready < 2:
+            # current() on a sub-group prefix would re-run the offline VAD
+            # over the whole buffer on every tick
+            print(f'[follow] {fed:.0f}s fed (buffering first chunks)',
+                  flush=True)
+            return
+        score, dur, n = o.current()
+        print(f'[follow] {fed:.0f}s fed, provisional score='
+              f'{"-" if score is None else f"{score:.3f}"} '
+              f'(speech {dur:.1f}s, {n} windows)', flush=True)
+
+    result = follow_wav_vfs(path, scorer, idle_timeout=args.follow_idle,
+                            on_update=report)
+    score_to_csv(result, dst)
+    print(f'[follow] finalized -> {dst}', flush=True)
+    return result
 
 
 if __name__ == '__main__':

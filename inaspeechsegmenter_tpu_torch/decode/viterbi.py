@@ -114,7 +114,7 @@ def viterbi_scan(emission, transition, initial, reset):
             code.data_ptr(), exits.data_ptr(), ctl.data_ptr(),
             states.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("viterbi", rc)
-    viterbi_scan.launches += 1
+    cuda_build.count_launch(viterbi_scan)
     viterbi_scan.last_ctl = ctl
     return states
 

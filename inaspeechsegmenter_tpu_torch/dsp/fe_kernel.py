@@ -19,7 +19,8 @@ import torch
 
 from ..utils import cuda_build
 from . import sidekit
-from .sidekit import NBINS, NFFT, NMEL, WIN, FrontendConsts, frame_count
+from .sidekit import (CHUNK, HOP, NBINS, NFFT, NMEL, WIN, FrontendConsts,
+                      frame_count)
 
 
 def sidekit_features_plain(sig, consts: FrontendConsts):
@@ -74,26 +75,77 @@ def sidekit_features(sig, consts: FrontendConsts):
             mspec.data_ptr(), loge.data_ptr(),
             torch.cuda.current_stream(sig.device).cuda_stream)
     cuda_build.check_launch("sidekit_fe", rc)
-    sidekit_features.launches += 1
+    cuda_build.count_launch(sidekit_features)
     return mspec, loge
 
 
 sidekit_features.launches = 0
 
 
+GROUP_CHUNKS = 3   # CHUNK-frame chunks per feature group (one launch)
+
+
+def _host_signal(sig):
+    """int16 kept as int16 (a half-size upload), any other dtype as
+    float32, contiguous."""
+    arr = np.asarray(sig)
+    keep = np.int16 if arr.dtype == np.int16 else np.float32
+    return np.ascontiguousarray(arr, dtype=keep)
+
+
 class KernelSidekitFrontend:
-    """The Segmenter's frontend: host signal in, device features out."""
+    """The Segmenter's frontend: host signal in, device features out.
+
+    Two shapes of call: :meth:`mspec_loge` computes a whole signal in one
+    launch (the fused path), :meth:`group_feats` / :meth:`iter_group_feats`
+    one group of ``GROUP_CHUNKS`` chunks of ``CHUNK`` frames at a time (the
+    streaming and online path).  The kernel computes every frame from its
+    own 400 samples, so a group's rows equal the same rows of a whole-file
+    launch.
+    """
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.consts = sidekit.frontend_consts(self.device)
 
     def mspec_loge(self, sig):
-        """Host signal (int16 kept as int16 for a half-size upload, any
-        other dtype as float32) -> (mspec (T, 24), loge (T,), T) on
-        ``self.device``."""
-        arr = np.asarray(sig)
-        keep = np.int16 if arr.dtype == np.int16 else np.float32
-        sig = torch.from_numpy(np.ascontiguousarray(arr, dtype=keep))
-        mspec, loge = sidekit_features(sig.to(self.device), self.consts)
+        """Host signal -> (mspec (T, 24), loge (T,), T) on ``self.device``."""
+        x = torch.from_numpy(_host_signal(sig)).to(self.device)
+        mspec, loge = sidekit_features(x, self.consts)
         return mspec, loge, mspec.shape[0]
+
+    def group_feats(self, raw, k):
+        """Features of ONE group: ``raw`` (host samples) covers ``k`` chunks
+        plus the 2*HOP lookahead, ``(k*CHUNK + 2)*HOP`` samples, which is
+        exactly ``k*CHUNK`` frames, in one launch.  The one owner of the
+        group computation, shared by :meth:`iter_group_feats` and the
+        online segmenter.
+
+        :return: ([(mspec_c (CHUNK, 24), loge_c (CHUNK,))] * k, None), the
+            JAX ``SidekitFrontend.group_feats`` shape (no shared PCM).
+        """
+        if len(raw) != (k * CHUNK + 2) * HOP:
+            raise ValueError(f"a group of {k} chunks takes "
+                             f"{(k * CHUNK + 2) * HOP} samples, got {len(raw)}")
+        m, lg, _ = self.mspec_loge(raw)
+        return [(m[j * CHUNK:(j + 1) * CHUNK], lg[j * CHUNK:(j + 1) * CHUNK])
+                for j in range(k)], None
+
+    def iter_group_feats(self, sig):
+        """Yield ``(chunks_g, None)`` group by group over a whole signal,
+        zero-padded to a whole number of chunks (at least one)."""
+        sig = _host_signal(sig)
+        n_chunks = max(1, -(-frame_count(len(sig)) // CHUNK))
+        need = (n_chunks * CHUNK + 2) * HOP
+        sig = np.pad(sig[:need], (0, max(0, need - len(sig))))
+        for g in range(0, n_chunks, GROUP_CHUNKS):
+            k = min(GROUP_CHUNKS, n_chunks - g)
+            yield self.group_feats(
+                sig[g * CHUNK * HOP:((g + k) * CHUNK + 2) * HOP], k)
+
+    def mspec_loge_chunks(self, sig):
+        """Per-chunk device features -> ([(mspec_c, loge_c)], n_frames)."""
+        outs = []
+        for chunks_g, _ in self.iter_group_feats(sig):
+            outs.extend(chunks_g)
+        return outs, frame_count(len(sig))

@@ -29,7 +29,8 @@ NFFT = 512
 NBINS = NFFT // 2 + 1
 NMEL = 24
 PREFAC = 0.97
-CHUNK = 4096  # frames per plain-version chunk (bounds the frame matrix)
+CHUNK = 4096  # frames per chunk: of the plain version's frame matrix and of
+              # the streaming path (about 41 s of audio)
 
 
 class FrontendConsts(NamedTuple):

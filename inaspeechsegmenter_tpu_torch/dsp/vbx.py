@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .mel import kaldi_mel_fbank
 from .sidekit import _dft_matrices
 
@@ -68,10 +69,11 @@ def preprocess_signal(signal):
 
 
 class VbxFrontend:
-    """Reference-exact VBx features on ``device`` (CPU: the plain path)."""
+    """Reference-exact VBx features on ``device`` (``cuda`` by default;
+    without a CUDA device it raises)."""
 
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
         fbank = kaldi_mel_fbank(WIN, SR, numchans=FEAT_DIM, lofreq=20.0,
                                 hifreq=7600, htk_bug=False)
         dcos, dsin = _dft_matrices(WIN, NFFT)

@@ -1,7 +1,7 @@
 """Segmentation pipeline after the features, on one device.
 
-Port of the fused path of ``inaspeechsegmenter_tpu/pipeline.py``
-(``FusedPipeline._run_impl``):
+Port of ``inaspeechsegmenter_tpu/pipeline.py`` (``FusedPipeline``).  The
+fused path (``run``, ``_run_impl`` there):
 
     loge  -> energy threshold -> 2-state Viterbi (10 ms) -> 20 ms decimation
     mspec -> per-frame normalized 68-row patches -> VAD CNN
@@ -17,8 +17,15 @@ padding frames sit behind a reset and cannot reach real frames).  The CNN
 runs only on the frames its Viterbi reads, in batches of ``CNN_CHUNK``
 patches, so memory stays bounded on hour-long files.
 
-The streaming path (``chunk_emissions`` / ``stream_decode``) is not ported
-yet; its labels equal the fused program's.
+The streaming path (``chunk_emissions`` / ``stream_decode`` /
+``run_streaming``) splits the same computation at feature chunks of
+``CHUNK`` frames: the VAD CNN runs per chunk, on all of its frames, from
+that chunk and ``STREAM_HALO`` mel rows of each neighbour, and a tail
+(energy decode, right-edge repair, VAD decode, gender CNN and decode)
+waits for the whole stream.  The online segmenter (``online.py``) is built
+on it: its ``ext`` suffix decode re-decodes only the chunks after a
+committed prefix.  Labels equal the fused path's
+(tests/test_torch_streaming.py).
 """
 
 from __future__ import annotations
@@ -28,10 +35,13 @@ import torch
 
 from .decode.transitions import diag_trans_exp, log_trans_exp
 from .decode.viterbi import viterbi_scan
-from .dsp.patches import frame_patches
+from .dsp.patches import (LPAD, PATCH_W, frame_patches, n_rows_of,
+                          normalize_windows, windows_at)
+from .utils.device import resolve_device
 
 CNN_CHUNK = 1024  # patches per CNN batch
 EPS = 1e-10
+STREAM_HALO = 40  # mel rows borrowed from each neighbour chunk (>= 2*LPAD + 2)
 
 
 def _f32(a, device):
@@ -39,14 +49,15 @@ def _f32(a, device):
 
 
 class FusedPipeline:
-    """Device constants and the decode for one engine configuration.
+    """Device constants and the decodes for one engine configuration.
 
     :param vad: (model, nmel, n_out, viterbi_arg) for the VAD CNN.
     :param gender: same tuple for the gender CNN, or None.
+    :param device: ``cuda`` by default; without a CUDA device it raises.
     """
 
-    def __init__(self, vad, gender=None, energy_ratio=0.03, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, vad, gender=None, energy_ratio=0.03, device="cuda"):
+        self.device = resolve_device(device)
         self.vad_model, self.vad_nmel, self.vad_nout, vad_arg = vad
         self.gender = gender
         if gender is not None:
@@ -67,19 +78,33 @@ class FusedPipeline:
         self.e_em = _f32([[em_log[1], em_log[0]], [em_log[0], em_log[1]]],
                          self.device)   # row 0: inactive, row 1: active
 
-    def _energy_states20(self, loge):
-        """(T,) log-energy -> (ceil(T/2),) bool 20 ms energy activity."""
+    def _energy_states20(self, loge, ext=None):
+        """(T,) log-energy -> (ceil(T/2),) bool 20 ms energy activity.
+
+        ``ext`` (suffix decodes only): ``(sum, cnt, e_init)``, the finite
+        log-energy sum and count of the frames LEFT of ``loge`` (host
+        numbers, cast to float32 as the JAX package does, so the threshold
+        stays the whole stream's mean) and the energy decode's initial
+        log-distribution at ``loge[0]`` (a near-one-hot of the committed
+        state at the seam)."""
         finite = torch.isfinite(loge)
-        cnt = finite.sum().clamp(min=1).to(torch.float32)
-        mean = torch.where(finite, loge, torch.zeros_like(loge)).sum() / cnt
-        thr = mean + self.log_ratio.to(loge.device)
+        total = torch.where(finite, loge, torch.zeros_like(loge)).sum()
+        if ext is None:
+            cnt = finite.sum().clamp(min=1).to(torch.float32)
+            init = self.e_init
+        else:
+            ext_sum, ext_cnt, init = ext
+            cnt = (finite.sum().to(torch.float32)
+                   + np.float32(ext_cnt)).clamp(min=1)
+            total = total + np.float32(ext_sum)
+            init = _f32(init, loge.device)
+        thr = total / cnt + self.log_ratio.to(loge.device)
         act = loge > thr
         em = self.e_em[act.long()]
         reset = torch.zeros(loge.shape[0], dtype=torch.bool,
                             device=loge.device)
         reset[0] = True
-        states = viterbi_scan(em.contiguous(), self.e_trans, self.e_init,
-                              reset)
+        states = viterbi_scan(em.contiguous(), self.e_trans, init, reset)
         return states[::2] == 1
 
     @torch.no_grad()
@@ -103,16 +128,9 @@ class FusedPipeline:
         reset[1:] = inmask[1:] != inmask[:-1]
         return viterbi_scan(em.contiguous(), trans, init, reset)
 
-    def run(self, mspec, loge, n_frames, n_frames_patch, n20):
-        """Label ids (n20,) int32 on the device: 0 = noEnergy, then the VAD
-        outlabels, then the gender outlabels.
-
-        :param mspec: (>= n_frames_patch, >= nmel) log-mel rows.
-        :param loge: (>= n_frames,) log-energy.
-        """
-        energy20 = self._energy_states20(loge[:n_frames])[:n20]
-        probs_v = self._cnn_probs(self.vad_model, mspec, n_frames_patch,
-                                  self.vad_nmel, self.vad_nout, energy20)
+    def _labels(self, mspec, n_frames_patch, energy20, probs_v):
+        """VAD decode, then the gender CNN and decode on the speech frames
+        -> (n20,) int32 label ids."""
         states_v = self._masked_viterbi(probs_v, energy20, self.v_trans,
                                         self.v_init)
         labels = torch.where(energy20, states_v + 1,
@@ -126,6 +144,112 @@ class FusedPipeline:
             labels = torch.where(speech20, states_g + 1 + self.vad_nout,
                                  labels).to(torch.int32)
         return labels
+
+    def run(self, mspec, loge, n_frames, n_frames_patch, n20):
+        """Label ids (n20,) int32 on the device: 0 = noEnergy, then the VAD
+        outlabels, then the gender outlabels.
+
+        :param mspec: (>= n_frames_patch, >= nmel) log-mel rows.
+        :param loge: (>= n_frames,) log-energy.
+        """
+        energy20 = self._energy_states20(loge[:n_frames])[:n20]
+        probs_v = self._cnn_probs(self.vad_model, mspec, n_frames_patch,
+                                  self.vad_nmel, self.vad_nout, energy20)
+        return self._labels(mspec, n_frames_patch, energy20, probs_v)
+
+    # -- streaming ----------------------------------------------------------
+    #
+    # Exactness: patch j reads mel rows [2*clip(j - 17, 0, n_rows - 1), +68)
+    # (dsp/patches.py).  A chunk starting at 20 ms frame j0 sees rows
+    # [2*j0 - STREAM_HALO, 2*(j0 + CHUNK/2) + STREAM_HALO) from its
+    # neighbours (zeros past either end of the stream), so an unclipped
+    # patch is one stride-2 window of those rows; the left clip only occurs
+    # in chunk 0 (the replicated window 0), and the right clip is repaired
+    # once, in the tail, by `_fix_right_edge`.
+
+    @torch.no_grad()
+    def _chunk_probs(self, model, nmel, prev_tail, own, next_head, is_first):
+        """CNN probabilities of the CHUNK/2 20 ms frames of one feature
+        chunk (the JAX ``_chunk_probs_impl``): frame l reads window
+        l + HALO/2 - LPAD of the halo'd rows; in the first chunk frames
+        l < LPAD read window HALO/2, the chunk's own window 0."""
+        m = torch.cat([prev_tail, own, next_head])
+        c20 = own.shape[0] // 2
+        z = STREAM_HALO // 2
+        if is_first:
+            win = torch.arange(z - LPAD, z - LPAD + c20,
+                               device=m.device).clamp(min=z)
+        else:
+            win = torch.arange(z - LPAD, z - LPAD + c20, device=m.device)
+        norm, fin = normalize_windows(windows_at(m, win, nmel,
+                                                 z - LPAD + c20 - 1))
+        p = model(norm.reshape(c20, PATCH_W, nmel)[..., None])
+        return torch.where(fin[:, None], p, torch.full_like(p, 0.5))
+
+    @torch.no_grad()
+    def _fix_right_edge(self, model, nmel, mspec, probs, n_frames_patch):
+        """Overwrite, in place, the replicate-edge frames (j > n_rows + 16)
+        of ``probs`` with the prediction of the last valid window: the
+        reference's right replicate padding (segmenter.py:83-85)."""
+        n_rows = n_rows_of(n_frames_patch)
+        last = torch.tensor([n_rows - 1], device=mspec.device)
+        norm, fin = normalize_windows(windows_at(mspec, last, nmel,
+                                                 n_rows - 1))
+        p_last = model(norm.reshape(1, PATCH_W, nmel)[..., None])[0]
+        probs[n_rows + LPAD:] = torch.where(fin[0], p_last,
+                                            torch.full_like(p_last, 0.5))
+        return probs
+
+    def chunk_emissions(self, chunks, c, zero_right=False):
+        """VAD CNN probabilities (CHUNK/2, n_out) of chunk ``c`` of a
+        per-chunk feature list [(mspec_c, loge_c)]: the ONE owner of the
+        halo policy (the neighbours' STREAM_HALO rows, zero halos at both
+        ends of the stream, the first-chunk replicate), shared by
+        `run_streaming` and the online segmenter, whose finalize() equals
+        the offline labels only if both build the same halos.
+
+        :param zero_right: treat ``c`` as the stream frontier (no right
+            context yet) even if later chunks exist: the online
+            provisional decode.
+        """
+        m_c = chunks[c][0]
+        zeros = m_c.new_zeros((STREAM_HALO, m_c.shape[1]))
+        prev = chunks[c - 1][0][-STREAM_HALO:] if c else zeros
+        nxt = (zeros if zero_right or c + 1 >= len(chunks)
+               else chunks[c + 1][0][:STREAM_HALO])
+        return self._chunk_probs(self.vad_model, self.vad_nmel, prev, m_c,
+                                 nxt, c == 0)
+
+    def stream_decode(self, chunks, probs_v, n_frames, n_frames_patch, n20,
+                      ext=None):
+        """The streaming tail over per-chunk features and their VAD
+        emissions -> (n20,) int32 label ids.  The ONE owner of the tail's
+        argument construction, shared by `run_streaming` and the online
+        segmenter.  ``ext`` makes it a suffix decode (see
+        `_energy_states20`)."""
+        return self._tail(torch.cat([m for m, _ in chunks]),
+                          torch.cat([lg for _, lg in chunks]),
+                          torch.cat(list(probs_v)), n_frames, n_frames_patch,
+                          n20, ext)
+
+    def _tail(self, mspec, loge, probs_v, n_frames, n_frames_patch, n20,
+              ext=None):
+        """The part of the streaming path that needs the whole stream
+        (the JAX ``_tail_impl``): energy decode, right-edge repair, VAD
+        decode, then the gender CNN on the decoded speech frames and its
+        decode."""
+        energy20 = self._energy_states20(loge[:n_frames], ext)[:n20]
+        probs_v = self._fix_right_edge(self.vad_model, self.vad_nmel, mspec,
+                                       probs_v, n_frames_patch)[:n20]
+        return self._labels(mspec, n_frames_patch, energy20, probs_v)
+
+    def run_streaming(self, chunks, n_frames, n_frames_patch, n20):
+        """Streaming execution over per-chunk features
+        [(mspec_c (CHUNK, 24), loge_c (CHUNK,))] -> (n20,) int32 label ids,
+        equal to `run` on the concatenated features."""
+        probs = [self.chunk_emissions(chunks, c) for c in range(len(chunks))]
+        return self.stream_decode(chunks, probs, n_frames, n_frames_patch,
+                                  n20)
 
 
 def rle(labels):

@@ -15,7 +15,6 @@ decodes from the CUDA Viterbi (``decode/viterbi.py``).
 
 from __future__ import annotations
 
-import os
 import time
 import warnings
 
@@ -27,19 +26,8 @@ from .dsp.fe_kernel import KernelSidekitFrontend
 from .export import seg2csv, seg2textgrid
 from .models.registry import load_patch_model
 from .pipeline import FusedPipeline, rle
-from .utils.retry import retry_call
-
-
-def resolve_device(device):
-    """A torch.device; ``cuda`` without a visible CUDA device raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but no CUDA device is visible; pass "
-            "device='cpu' explicitly to run the plain PyTorch path")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
+from .utils.device import resolve_device
+from .utils.prefetch import run_prefetched, staged_producer
 
 
 class DnnSegmenter:
@@ -176,17 +164,27 @@ class Segmenter:
 
     def segment_signal(self, sig, start_sec=0, medianame="<signal>"):
         """Segment an already-decoded 16 kHz mono signal (int16 or float)
-        -> [(label, start_s, stop_s)]."""
+        -> [(label, start_s, stop_s)].
+
+        Always the fused path (``FusedPipeline.run``: one features launch,
+        then the CNNs on the active frames only), whatever the length.  The
+        JAX package streams files of two chunks or more here; the port
+        keeps the streaming decomposition (``pipeline.run_streaming``) for
+        the online family, whose labels equal these
+        (tests/test_torch_streaming.py)."""
         mspec, loge, t, difflen = self._sig2feats(sig, medianame)
         return self._segment(mspec, loge, t, difflen, start_sec)
 
     # ------------------------------------------------------------------
     def batch_process(self, linput, loutput, verbose=False, skipifexist=False,
                       nbtry=1, trydelay=2., output_format="csv"):
-        """Serial batch segmentation with the reference's accounting
+        """Batch segmentation with the reference's accounting
         (segmenter.py:297-335): returns (t_batch_dur, nb_processed,
-        avg_per_file, [(dst, 0|1|2, status)]).  A failing file gets an
-        ``error: ...`` status instead of aborting the batch."""
+        avg_per_file, [(dst, 0|1|2, status)]).  ``ISS_PREFETCH`` producer
+        threads decode and compute the features of the next files while
+        this thread segments and exports the current one
+        (``utils/prefetch.py``).  A failing file gets an ``error: ...``
+        status instead of aborting the batch."""
         if verbose:
             print("batch_processing %d files" % len(linput))
         if output_format == "csv":
@@ -196,34 +194,16 @@ class Segmenter:
         else:
             raise NotImplementedError()
 
-        t0 = time.time()
-        lmsg = []
-        items = list(zip(linput, loutput))
-        for src, dst in items:
-            lmsg.append(self._process_one(src, dst, fexport, skipifexist,
-                                          nbtry, trydelay))
-            if verbose:
-                print("%d/%d" % (len(lmsg), len(items)), [lmsg[-1]])
-        dur = time.time() - t0
-        n_ok = len([e for e in lmsg if e[1] == 0])
-        return dur, n_ok, dur / n_ok if n_ok else -1, lmsg
+        produce = staged_producer(self._media2feats, skipifexist=skipifexist,
+                                  nbtry=nbtry, trydelay=trydelay)
 
-    def _process_one(self, src, dst, fexport, skipifexist, nbtry, trydelay):
-        if skipifexist and os.path.exists(dst):
-            return (dst, 1, "already exists")
-        try:
-            dname = os.path.dirname(dst)
-            if dname and not os.path.isdir(dname):
-                os.makedirs(dname, exist_ok=True)
-            feats, err = retry_call(lambda: self._media2feats(src),
-                                    nbtry=nbtry, trydelay=trydelay)
-            if feats is None:
-                return (dst, 2, "error: " + str(err))
+        def consume(feats, item, msg):
             b = time.time()
-            fexport(self._segment(*feats, 0), dst)
-            return (dst, 0, "ok " + str(time.time() - b))
-        except Exception as exc:   # bad destination, full disk, ...
-            return (dst, 2, "error: " + repr(exc))
+            fexport(self._segment(*feats, 0), item[1])
+            return (msg[0], msg[1], "ok " + str(time.time() - b))
+
+        return run_prefetched(list(zip(linput, loutput)), produce, consume,
+                              verbose=verbose)
 
 
 def patch_counts(t, difflen):

@@ -12,23 +12,28 @@ denormals and approximates ``logf``, and the frontend's ``-inf`` rows on
 digital silence depend on an exact ``log(0)``.
 
 Nothing is built or loaded at import: the first kernel launch calls
-:func:`library`.
+:func:`library`.  The first build and load hold one process-wide lock, so
+threads that launch their first kernels together (the batch drivers'
+producer threads) build once, into one set of temporary files.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+
+_LOCK = threading.RLock()   # the first build and load; re-entered by library()
+_LIB = None
 
 
 def sources():
@@ -67,6 +72,11 @@ def build(verbose=False):
     :return: path of the shared library.
     :raises RuntimeError: with nvcc's output when the build fails.
     """
+    with _LOCK:
+        return _build(verbose)
+
+
+def _build(verbose):
     out_dir = build_dir()
     lib = os.path.join(out_dir, f"libiss_torch_kernels_{source_hash()}.so")
     if os.path.exists(lib):
@@ -109,16 +119,20 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
 def library():
     """The loaded kernel library (built first if needed), with every entry
     point's ``argtypes``/``restype`` declared."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    global _LIB
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(build())
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIB = lib
+    return _LIB
 
 
 def check_launch(name, rc):
@@ -126,3 +140,13 @@ def check_launch(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed "
                            f"(cudaError {rc})")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper):
+    """Add one to ``wrapper.launches``; producer threads launch kernels
+    too, and ``+=`` on an attribute is not atomic."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -16,8 +16,10 @@ Full windows are gathered on the device from the feature tensor and run
 through the ResNet in sub-batches of ``ISS_XVEC_BATCH`` (default 256); the
 ragged tail window runs through the masked forward.
 
-Not ported: the overlapped speculative scorer, ``mesh=``, ``OnlineVFS``
-and the ``ISS_XVEC_PRECISION`` ladder.  ``batch_score`` runs serially.
+``batch_score`` prefetches the next files' VAD and VBx features on
+producer threads; ``online.OnlineVFS`` scores a growing recording.  Not
+ported: the overlapped speculative scorer, ``mesh=`` and the
+``ISS_XVEC_PRECISION`` ladder.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ from .audio.io import check_ffmpeg, media2sig16kmono
 from .dsp.vbx import VbxFrontend
 from .models.registry import load_patch_model, resolve_xvector_weights
 from .models.resnet import ResNet101XVector, pooled_freq
-from .segmenter import Segmenter, resolve_device
+from .segmenter import Segmenter
+from .utils.device import resolve_device
+from .utils.prefetch import run_prefetched, staged_producer
 from .utils.retry import retry_call
 
 logger = logging.getLogger(__name__)
@@ -338,38 +342,22 @@ class VoiceFemininityScoring:
     # ------------------------------------------------------------------
     def batch_score(self, linput, loutput, verbose=False, skipifexist=False,
                     nbtry=1, trydelay=2.):
-        """Score a list of files serially, one tab-separated csv per input.
+        """Score a list of files, one tab-separated csv per input.
 
         Returns (total_duration_s, n_processed, avg_s_per_file, lmsg) with
         lmsg entries (dst, 0|1|2, 'ok t'|'already exists'|'error: ...').
-        Both phases — decode + VAD + features, then ResNet + MLP — get the
+        ``ISS_PREFETCH`` producer threads run decode + VAD + VBx features of
+        the next files (``_prepare``) while this thread runs the current
+        file's ResNet and MLP (``utils/prefetch.py``); both phases get the
         ``nbtry`` / ``trydelay`` retry budget.
         """
         if verbose:
             print("batch_processing %d files" % len(linput))
-        t0 = time.time()
-        lmsg = []
-        items = list(zip(linput, loutput))
-        for src, dst in items:
-            lmsg.append(self._score_one(src, dst, skipifexist, nbtry,
-                                        trydelay))
-            if verbose:
-                print("%d/%d" % (len(lmsg), len(items)), [lmsg[-1]])
-        dur = time.time() - t0
-        n_ok = len([e for e in lmsg if e[1] == 0])
-        return dur, n_ok, dur / n_ok if n_ok else -1, lmsg
+        produce = staged_producer(self._prepare, skipifexist=skipifexist,
+                                  nbtry=nbtry, trydelay=trydelay)
 
-    def _score_one(self, src, dst, skipifexist, nbtry, trydelay):
-        if skipifexist and os.path.exists(dst):
-            return (dst, 1, "already exists")
-        try:
-            dname = os.path.dirname(dst)
-            if dname and not os.path.isdir(dname):
-                os.makedirs(dname, exist_ok=True)
-            prepared, err = retry_call(lambda: self._prepare(src),
-                                       nbtry=nbtry, trydelay=trydelay)
-            if prepared is None:
-                return (dst, 2, "error: " + str(err))
+        def consume(prepared, item, msg):
+            dst = item[1]
             b = time.time()
             result, err = retry_call(lambda: self._score_prepared(prepared),
                                      nbtry=nbtry, trydelay=trydelay)
@@ -377,8 +365,9 @@ class VoiceFemininityScoring:
                 return (dst, 2, "error: " + str(err))
             score_to_csv(result, dst)
             return (dst, 0, "ok " + str(time.time() - b))
-        except Exception as exc:   # bad destination, full disk, ...
-            return (dst, 2, "error: " + repr(exc))
+
+        return run_prefetched(list(zip(linput, loutput)), produce, consume,
+                              verbose=verbose)
 
     def batch_process(self, linput, loutput, verbose=False, skipifexist=False,
                       nbtry=1, trydelay=2., output_format="csv"):

@@ -66,3 +66,58 @@ def test_failed_compile_raises_and_links_nothing(fake_nvcc, tmp_path,
     assert not any("-shared" in c.split()
                    for c in fake_nvcc.read_text().splitlines())
     assert os.listdir(tmp_path / "build") == []
+
+
+def test_concurrent_first_builds_compile_once(fake_nvcc, tmp_path):
+    """Threads that launch their first kernels together (the batch
+    drivers' producers) wait for one build: each source compiles once and
+    the objects link once."""
+    import threading
+
+    barrier = threading.Barrier(4)
+    libs = []
+
+    def first_launch():
+        barrier.wait(timeout=10)
+        libs.append(cuda_build.build())
+
+    threads = [threading.Thread(target=first_launch) for _ in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert len(libs) == 4 and len(set(libs)) == 1
+    calls = fake_nvcc.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert sorted(c.split()[-1] for c in compiles) == sorted(
+        cuda_build.sources())
+    assert len([c for c in calls if "-shared" in c.split()]) == 1
+    assert sorted(os.listdir(tmp_path / "build")) == [os.path.basename(libs[0])]
+
+
+def test_launch_counts_survive_threads():
+    """More counting threads than cores, switching as often as the
+    interpreter allows: no launch is lost from a wrapper's count."""
+    import threading
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    n_threads, n_each = 4 * (os.cpu_count() or 1), 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [cuda_build.count_launch(wrapper)
+                            for _ in range(n_each)])
+            for _ in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert wrapper.launches == n_threads * n_each

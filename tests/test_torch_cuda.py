@@ -15,6 +15,15 @@ The VFS path has no hand kernel; its cases hold the CUDA run of the plain
 PyTorch code (cuDNN / cuBLAS, TF32 off) against the CPU run: VBx features
 within ``dsp.vbx.device_atol(n_frames)``, tiny-ResNet embeddings within a relative L2
 error of 1e-4, and the end-to-end score equal.
+
+Streaming and online: a group launch of the features kernel within the
+features tolerance of the plain version and bit-equal to the rows of a
+whole-signal launch; the Viterbi with the online suffix decode's
+near-one-hot initial vector bit-equal; ``run_streaming`` against ``run``
+and the online ``finalize()`` against ``segment_signal`` with at most 0.1%
+of the frames differing (the CNN runs in batches of other sizes, which
+cuDNN may take another algorithm for); the prefetched ``batch_process``
+csvs equal to one call of the Segmenter per file.
 """
 
 import numpy as np
@@ -247,3 +256,141 @@ def test_vfs_cuda_matches_cpu(dev, tmp_path):
         "vfp", device="cpu", model_dir=models, xvector_net=net,
         xvector_params=params).score_signal(sig)
     assert got == want and got[2] > 0
+
+
+# -- streaming, online and prefetch on the card --------------------------------
+
+@pytest.fixture(scope="module")
+def small_models(tmp_path_factory):
+    from inaspeechsegmenter_tpu_torch.models.synthetic import (
+        install_synthetic_models)
+
+    return install_synthetic_models(str(tmp_path_factory.mktemp("models")),
+                                    size="small")
+
+
+@pytest.mark.parametrize("kind", ["int16", "f32"])
+def test_group_features_match_plain_and_whole_signal_rows(dev, kind):
+    """One launch per group of 3 chunks: within the features tolerance of
+    the plain version, and its rows bit-equal to the same rows of one
+    launch over the whole signal (every frame reads only its own 400
+    samples)."""
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import (
+        GROUP_CHUNKS, KernelSidekitFrontend)
+
+    CHUNK, HOP = sidekit.CHUNK, sidekit.HOP
+    sig = speechlike(4.4 * CHUNK * HOP / 16000, seed=9,
+                     silences=[(3.0, 5.0), (130.0, 131.0)])
+    arr = to_int16(sig) if kind == "int16" else sig
+    fe = KernelSidekitFrontend(dev)
+    raw = arr[:(GROUP_CHUNKS * CHUNK + 2) * HOP]
+    before = fe_kernel.sidekit_features.launches
+    chunks, _ = fe.group_feats(raw, GROUP_CHUNKS)
+    assert fe_kernel.sidekit_features.launches == before + 1
+    mk = torch.cat([m for m, _ in chunks]).cpu().numpy()
+    lk = torch.cat([lg for _, lg in chunks]).cpu().numpy()
+    mp, lp = fe_kernel.sidekit_features_plain(torch.from_numpy(raw).to(dev),
+                                              fe.consts)
+    mp, lp = mp.cpu().numpy(), lp.cpu().numpy()
+    fin = np.isfinite(mp)
+    np.testing.assert_array_equal(np.isfinite(mk), fin)
+    np.testing.assert_allclose(mk[fin], mp[fin], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lk[np.isfinite(lp)], lp[np.isfinite(lp)],
+                               rtol=1e-5, atol=1e-5)
+    feats, t = fe.mspec_loge_chunks(arr)
+    whole_m, whole_l, _ = fe.mspec_loge(arr)
+    m = torch.cat([c[0] for c in feats])[:t]
+    lg = torch.cat([c[1] for c in feats])[:t]
+    assert torch.equal(m, whole_m) and torch.equal(lg, whole_l)
+
+
+def test_viterbi_kernel_near_one_hot_initial(dev):
+    """The online suffix decode's energy initial vector: log(1e-200) off
+    the committed state, 0 on it."""
+    from inaspeechsegmenter_tpu_torch.decode.transitions import (
+        log_trans_exp)
+
+    rng = np.random.default_rng(5)
+    T = 3 * 4096 + 17
+    act = rng.random(T) < 0.6
+    em = np.where(act[:, None], np.log([1e-10, 1 - 1e-10]),
+                  np.log([1 - 1e-10, 1e-10])).astype(np.float32)
+    reset = np.zeros(T, bool)
+    reset[0] = True
+    for state in (0, 1):
+        init = np.full(2, np.log(1e-200), np.float32)
+        init[state] = 0.0
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            em, log_trans_exp(150, cost0=-5).astype(np.float32), init,
+            reset)]
+        got = tv.viterbi_scan(*args).cpu().numpy()
+        want = tv.viterbi_scan_plain(*args).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert got[0] == state
+
+
+@pytest.fixture(scope="module")
+def cuda_seg(dev, small_models):
+    from inaspeechsegmenter_tpu_torch import Segmenter
+
+    return Segmenter("smn", True, ffmpeg=None, device=dev,
+                     model_dir=small_models)
+
+
+def _frame_labels(lseg):
+    return np.concatenate([np.full(int(round((b - a) / .02)), lab, object)
+                           for lab, a, b in lseg])
+
+
+def test_run_streaming_matches_run(cuda_seg):
+    CHUNK, HOP = sidekit.CHUNK, sidekit.HOP
+    sig = to_int16(speechlike(3.4 * CHUNK * HOP / 16000, seed=11,
+                              silences=[(20.0, 21.0), (95.0, 97.0)]))
+    feats, t = cuda_seg.frontend.mspec_loge_chunks(sig)
+    n20 = (t + 1) // 2
+    got = cuda_seg.pipeline.run_streaming(feats, t, t, n20).cpu().numpy()
+    mspec, loge, _ = cuda_seg.frontend.mspec_loge(sig)
+    want = cuda_seg.pipeline.run(mspec, loge, t, t, n20).cpu().numpy()
+    # the CNN runs in batches of other sizes: at most 0.1% of the frames
+    assert (got != want).sum() <= 0.001 * n20
+
+
+def test_online_finalize_matches_segment_signal(cuda_seg):
+    from inaspeechsegmenter_tpu_torch import OnlineSegmenter
+
+    CHUNK, HOP = sidekit.CHUNK, sidekit.HOP
+    sig = to_int16(speechlike(4.3 * CHUNK * HOP / 16000, seed=12,
+                              silences=[(30.0, 31.0)]))
+    online = OnlineSegmenter(cuda_seg)
+    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    for pos in range(0, len(sig), 16000 * 5):
+        online.feed(sig[pos:pos + 16000 * 5])
+        if online.chunks_ready >= 2:
+            # (before that, a poll segments the buffered prefix whole)
+            online.current()
+    got = _frame_labels(online.finalize())
+    assert fe_kernel.sidekit_features.launches == fe0 + 2   # two groups
+    assert tv.viterbi_scan.launches > vt0 + 3
+    want = _frame_labels(cuda_seg.segment_signal(sig))
+    assert got.shape == want.shape
+    assert (got != want).sum() <= 0.001 * len(want)
+
+
+def test_prefetched_batch_process_matches_one_by_one(cuda_seg, tmp_path,
+                                                     monkeypatch):
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+    from inaspeechsegmenter_tpu_torch.export import seg2csv
+
+    monkeypatch.setenv("ISS_PREFETCH", "3")
+    wavs = []
+    for i, seconds in enumerate((2.0, 20.0, 65.0, 7.0)):
+        wavs.append(str(tmp_path / f"f{i}.wav"))
+        write_wav(wavs[-1], to_int16(speechlike(seconds, seed=30 + i,
+                                                silences=[(0.5, 1.2)])),
+                  16000)
+    wavs.append(str(tmp_path / "missing.wav"))
+    outs = [str(tmp_path / "out" / f"f{i}.csv") for i in range(len(wavs))]
+    _, n_ok, _, lmsg = cuda_seg.batch_process(wavs, outs)
+    assert n_ok == 4 and [m[1] for m in lmsg] == [0, 0, 0, 0, 2]
+    for wav, out in zip(wavs[:-1], outs[:-1]):
+        assert open(out).read() == seg2csv(cuda_seg(wav))

@@ -1,8 +1,10 @@
-"""PyTorch port: runs without jax, pandas or h5py.
+"""PyTorch port: runs without jax, pandas or h5py, and without the JAX
+package.
 
 The machine with the GPU has none of them, so the port must neither import
-them (at module level, on the segmentation path or on the VFS path) nor
-name jax in an import anywhere in its sources.
+them (at module level, on the segmentation, VFS or online path) nor name
+jax or the JAX package ``inaspeechsegmenter_tpu`` in an import anywhere in
+its sources or in ``chip_smoke.py``.
 """
 
 import os
@@ -38,7 +40,15 @@ scorer = port.VoiceFemininityScoring("bgc", device="cpu", model_dir="models",
                                      xvector_params=net.init_params(seed=0))
 score, dur, n = scorer("t.wav")
 assert dur >= 0 and n >= 0, (score, dur, n)
-bad = [m for m in ("jax", "jaxlib", "pandas", "h5py") if m in sys.modules]
+long = np.tile(sig, 30)             # 90 s: three chunks, streamed at finalize
+online = port.OnlineSegmenter(seg)
+for pos in range(0, len(long), 16000 * 10):
+    online.feed(long[pos:pos + 16000 * 10])
+    online.current()
+assert online.finalize() == seg.segment_signal(long)
+assert online.chunks_ready == 3, online.chunks_ready
+bad = [m for m in ("jax", "jaxlib", "pandas", "h5py",
+                   "inaspeechsegmenter_tpu") if m in sys.modules]
 assert not bad, bad
 print("NO-JAX-OK")
 """
@@ -53,14 +63,18 @@ def test_port_runs_without_jax_pandas_h5py(tmp_path):
 
 
 def test_no_source_imports_jax_pandas_or_h5py():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pandas|h5py)\b",
+    # ``inaspeechsegmenter_tpu`` followed by a word character is the port
+    pat = re.compile(r"^\s*(import|from)\s+"
+                     r"(jax|jaxlib|pandas|h5py|inaspeechsegmenter_tpu)\b",
                      re.MULTILINE)
-    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for name in files:
-            if name.endswith(".py"):
-                path = os.path.join(root, name)
-                with open(path) as fh:
-                    if pat.search(fh.read()):
-                        offenders.append(os.path.relpath(path, REPO))
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            if pat.search(fh.read()):
+                offenders.append(os.path.relpath(path, REPO))
     assert not offenders, offenders
+    assert pat.search("from inaspeechsegmenter_tpu.online import x")
+    assert not pat.search("from inaspeechsegmenter_tpu_torch import x")

@@ -183,3 +183,21 @@ def test_stage_class_without_device_needs_a_card(synthetic_model_dir, stage):
     cls = getattr(segmenter, stage, None) or getattr(vfs, stage)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cls(model_dir=synthetic_model_dir)
+
+
+@pytest.mark.parametrize("stage", ["VbxFrontend", "FusedPipeline"])
+def test_frontend_and_pipeline_without_device_need_a_card(port_seg, stage):
+    """``VbxFrontend`` and ``FusedPipeline`` default to ``cuda`` too."""
+    import torch
+
+    from inaspeechsegmenter_tpu_torch.dsp.vbx import VbxFrontend
+    from inaspeechsegmenter_tpu_torch.pipeline import FusedPipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if stage == "VbxFrontend":
+            VbxFrontend()
+        else:
+            FusedPipeline(port_seg.vad.as_pipeline_stage(),
+                          port_seg.gender.as_pipeline_stage())
