@@ -62,11 +62,34 @@ Phases, each fatal on failure (non-zero exit, no final line):
    offline VAD timelines are equal); and the force-commit disagreement: a
    15 min mix with no inserted silence, ``COMMIT_MAXBACK = 16``, the frames
    of the committed prefix that differ from ``finalize()`` and the forced
-   commits.
+   commits;
+5. real inputs: (a) the full-width synthetic set written as Keras ``.hdf5``
+   files (the Keras 2 layout, by ``tests/torch_parity_helpers.write_h5``,
+   numpy only) and the Segmenter and VFS scorer built from them: the
+   ``.hdf5`` files resolved, the npz conversion cache written and taken by
+   a second construction (both construction times printed), weights
+   bit-equal to phases 2-3's npz route, the 10 min labels and VFS tuple
+   equal; (b) ``ISS_CNN_PRECISION`` ``highest`` / ``high`` / ``bf16`` on
+   the warm 10 min file (wall, VAD and gender CNN ms, frames whose label
+   differs from ``highest``; CNN probabilities within 2e-2 of ``highest``
+   and not bit-equal to them) and ``ISS_XVEC_PRECISION`` on the ResNet
+   over the 10 min file's windows (windows/s, TFLOP/s, relative L2 error
+   of the embeddings against ``highest``: at most 1e-2 for ``high`` and
+   5e-2 for ``bf16``, and not bit-equal), ``batch_score`` of phase 2's
+   WAVs with the ResNet at ``high`` (the producer threads' VAD and VBx
+   features bit-equal to a serial run's, the TF32 flags as before), then
+   ``ISS_XVEC_TAIL=exact`` once; (c) media decode through ffmpeg on the
+   card: a stand-in ``ffmpeg`` on ``PATH`` (the port's WAV reader and
+   numpy) decodes a
+   44.1 kHz stereo copy of the 60 s mix for ``Segmenter(...,
+   ffmpeg="ffmpeg")``, whole and windowed by ``start_sec`` / ``stop_sec``:
+   segments tile each window and both kernels are launched; an unknown
+   binary raises "ffmpeg program not found".
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-4, launches per file for
-segmentation, VFS and the online segmenter, ``bound_ms``: the larger of the
+summed over the main-path runs of phases 2-5, launches per file for
+segmentation, VFS, the online segmenter and the ffmpeg decode,
+``bound_ms``: the larger of the
 bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
 card's name and power limit; the last line is the JSON result.  Every time
 is on the card that line names.  Imports nothing of JAX.
@@ -416,7 +439,8 @@ def phase_main(torch, dev, workdir):
         write_wav(wavs[-1], sig, SR)
 
     t0 = time.perf_counter()
-    seg = Segmenter("smn", True, ffmpeg=None, device=dev, model_dir=models)
+    seg = Segmenter("smn", True, ffmpeg=None, device=dev, model_dir=models,
+                    allow_download=False)
     log(f"[main] Segmenter(device={dev}) built in "
         f"{time.perf_counter() - t0!r} s")
 
@@ -464,7 +488,8 @@ def phase_main(torch, dev, workdir):
                                            wavs[list(files).index("mix600")])
 
     # the same 60 s file through the port's plain path on the CPU
-    cpu = Segmenter("smn", True, ffmpeg=None, device="cpu", model_dir=models)
+    cpu = Segmenter("smn", True, ffmpeg=None, device="cpu", model_dir=models,
+                    allow_download=False)
     a = frame_labels(seg(wavs[1]))
     b = frame_labels(cpu(wavs[1]))
     check(a.shape == b.shape, "cuda and cpu label counts differ")
@@ -498,7 +523,8 @@ def segmentation_split(torch, dev, seg, wav, reps=5):
              "VAD CNN", "VAD decode", "gender CNN", "gender decode")
     runs = []
     for _ in range(reps):
-        sig, t_read = timed(lambda: media2sig16kmono(wav, dtype="auto"))
+        sig, t_read = timed(lambda: media2sig16kmono(wav, ffmpeg=None,
+                                                     dtype="auto"))
         (mspec, loge, t, difflen), t_fe = timed(
             lambda: seg._sig2feats(sig, wav))
         n_fp, n20 = patch_counts(t, difflen)
@@ -548,7 +574,8 @@ def segmentation_split(torch, dev, seg, wav, reps=5):
         log(f"[main] mix600 {name} decode: T={T} K={K} kernel_ms={ms!r} "
             f"passes={tv.pass_count()} walked_chunks={tv.walked_chunks()} "
             f"resets={int(args[3].sum())}")
-    sig = torch.from_numpy(media2sig16kmono(wav, dtype="auto")).to(dev)
+    sig = torch.from_numpy(media2sig16kmono(wav, ffmpeg=None,
+                                            dtype="auto")).to(dev)
     ms = cuda_ms(lambda: fe_kernel.sidekit_features(
         sig, seg.frontend.consts), 20, torch)
     log(f"[main] mix600 features kernel: {ms!r} ms for "
@@ -585,7 +612,7 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     params = ResNet101XVector().init_params(seed=0)
     save_resnet_npz(os.path.join(models, "raw_81.npz"), params)
     vfs = VoiceFemininityScoring("bgc", ffmpeg=None, device=dev,
-                                 model_dir=models)
+                                 model_dir=models, allow_download=False)
     log(f"[vfs] ResNet101 weights saved and VoiceFemininityScoring(device="
         f"{dev}) built in {time.perf_counter() - t0!r} s")
 
@@ -608,7 +635,8 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
         check(n > 0, f"the VFS run never launched the {name} kernel")
     warm_batch_walls(vfs.batch_score, wavs, csvs, "vfs")
 
-    vad = Segmenter("smn", False, ffmpeg=None, device=dev, model_dir=models)
+    vad = Segmenter("smn", False, ffmpeg=None, device=dev, model_dir=models,
+                    allow_download=False)
     for (name, sig), csv in zip(files.items(), csvs):
         with open(csv) as fh:
             lines = fh.read().splitlines()
@@ -638,7 +666,8 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
         f"max_abs_err={fea_err!r} (T={n_fr}, atol {device_atol(n_fr)!r})")
     check(fea_err <= device_atol(n_fr), "VBx features differ")
     vfs_cpu = VoiceFemininityScoring("bgc", ffmpeg=None, device="cpu",
-                                     model_dir=models, xvector_params=params)
+                                     model_dir=models, xvector_params=params,
+                                     allow_download=False)
     starts = list(range(0, n_fr - WINLEN, 24))
     t0 = time.perf_counter()
     emb_p = vfs_cpu.xvector_model.embeddings_from_features(fea_p, starts)
@@ -724,7 +753,7 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     fe_ms = cuda_ms(lambda: vfs.features.device_features(seg_dev), 10, torch)
     log(f"[vfs] VBx device features (plain PyTorch), 10 min: {fe_ms!r} ms "
         f"for {fea.shape[0]} frames; kernel launches per file {per_file}")
-    return vfs, launches, per_file
+    return vfs, params, launches, per_file
 
 
 # --------------------------------------------------------------------------
@@ -919,6 +948,386 @@ def phase_online(torch, dev, workdir, seg, vfs, files, wavs):
     check(n_diff <= 0.001 * n_fr, "online finalize differs on >0.1% (15 min)")
     return per_file
 
+# --------------------------------------------------------------------------
+CNN_TIER_ATOL = 2e-2            # the JAX package's own tier tolerance
+XVEC_TIER_RTOL = {"high": 1e-2, "bf16": 5e-2}
+TIERS = ("highest", "high", "bf16")
+FFMPEG_WINDOW = (10.0, 40.0)
+
+
+def kernel_counts():
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+
+    return {"sidekit_fe": fe_kernel.sidekit_features.launches,
+            "viterbi": tv.viterbi_scan.launches}
+
+
+def reset_kernel_counts():
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+
+    fe_kernel.sidekit_features.launches = 0
+    tv.viterbi_scan.launches = 0
+
+
+def write_hdf5_models(directory):
+    """The full-width synthetic set (the seeds of ``install_synthetic_models
+    (seed=0)``) as Keras 2 ``.hdf5`` files, written with numpy alone."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_parity_helpers import write_spec_h5
+
+    from inaspeechsegmenter_tpu_torch.models.synthetic import (
+        build_gender_mlp, build_patch_cnn)
+
+    os.makedirs(directory)
+    for stem, (spec, params) in {
+            "keras_speech_music_cnn": build_patch_cnn(21, 2, 0, "full"),
+            "keras_speech_music_noise_cnn": build_patch_cnn(21, 3, 1, "full"),
+            "keras_male_female_cnn": build_patch_cnn(24, 2, 2, "full"),
+            "interspeech2023_all": build_gender_mlp(seed=3),
+            "interspeech2023_cvfr": build_gender_mlp(seed=4)}.items():
+        write_spec_h5(os.path.join(directory, stem + ".hdf5"), spec, params)
+
+
+def same_weights(torch, a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    return list(sa) == list(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def phase_hdf5(torch, dev, workdir, seg, vfs, files, wavs, models):
+    """(a): the Segmenter and the VFS scorer built from ``.hdf5`` files."""
+    import shutil
+
+    from inaspeechsegmenter_tpu_torch import (Segmenter,
+                                              VoiceFemininityScoring)
+
+    h5dir = os.path.join(workdir, "hdf5_models")
+    write_hdf5_models(h5dir)
+    shutil.copy(os.path.join(models, "raw_81.npz"), h5dir)
+    stems = sorted(n[:-5] for n in os.listdir(h5dir) if n.endswith(".hdf5"))
+    size = sum(os.path.getsize(os.path.join(h5dir, n + ".hdf5"))
+               for n in stems)
+    log(f"[real] wrote {stems} as .hdf5 ({size!r} B)")
+    built = []
+    for attempt in ("first (parse + convert)", "second (cache)"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = Segmenter("smn", True, ffmpeg=None, device=dev, model_dir=h5dir,
+                      allow_download=False)
+        t_seg = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        v = VoiceFemininityScoring("bgc", ffmpeg=None, device=dev,
+                                   model_dir=h5dir, allow_download=False)
+        t_vfs = time.perf_counter() - t0
+        paths = [os.path.basename(m.path) for m in (
+            s.vad.model, s.gender.model, v.gender_detection_mlp_model)]
+        log(f"[real] {attempt} construction from {h5dir}: Segmenter "
+            f"{t_seg!r} s, VoiceFemininityScoring {t_vfs!r} s; models read "
+            f"from {paths}")
+        built.append((s, v, paths))
+    (seg_h5, vfs_h5, first), (_, _, second) = built
+    check(all(p.endswith(".hdf5") for p in first),
+          f"the first construction did not read the hdf5 files: {first}")
+    check(all(p.endswith(".npz") for p in second),
+          f"the second construction did not take the npz cache: {second}")
+    cached = [n for n in stems
+              if os.path.exists(os.path.join(h5dir, n + ".npz"))]
+    check(cached == ["interspeech2023_all", "keras_male_female_cnn",
+                     "keras_speech_music_noise_cnn"],
+          f"conversion cache written for {cached}, not for the three "
+          "models loaded")
+    for a, b, name in ((seg_h5.vad.model, seg.vad.model, "VAD CNN"),
+                       (seg_h5.gender.model, seg.gender.model, "gender CNN"),
+                       (vfs_h5.gender_detection_mlp_model,
+                        vfs.gender_detection_mlp_model, "VFS MLP")):
+        check(same_weights(torch, a, b),
+              f"{name}: hdf5-route weights differ from the npz route's")
+    wav = wavs[list(files).index("mix600")]
+    n_diff, n_fr = frames_differ(seg_h5(wav), seg(wav))
+    got, want = vfs_h5(wav), vfs(wav)
+    log(f"[real] hdf5 route vs npz route: weights bit-equal; mix600 labels "
+        f"{n_diff} of {n_fr} frames differ; VFS {got} vs {want}")
+    check(n_diff == 0, "hdf5-route labels differ from the npz route's")
+    check(got == want, "hdf5-route VFS result differs from the npz route's")
+
+
+def cnn_tier_run(torch, seg, sig, speech20=None, reps=3):
+    """The two CNNs of the warm 10 min file, each timed alone (median of
+    ``reps``, device synced): -> (VAD probs on energy frames, gender probs
+    on ``speech20`` (this tier's speech when None), VAD ms, gender ms,
+    speech20)."""
+    from inaspeechsegmenter_tpu_torch.segmenter import patch_counts
+
+    p = seg.pipeline
+    mspec, loge, t, difflen = seg._sig2feats(sig)
+    n_fp, n20 = patch_counts(t, difflen)
+    energy20 = p._energy_states20(loge[:t])[:n20]
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(times))
+
+    probs_v, ms_v = timed(lambda: p._cnn_probs(
+        p.vad_model, mspec, n_fp, p.vad_nmel, p.vad_nout, energy20))
+    if speech20 is None:
+        states = p._masked_viterbi(probs_v, energy20, p.v_trans, p.v_init)
+        speech20 = energy20 & (states == 0)
+    probs_g, ms_g = timed(lambda: p._cnn_probs(
+        p.g_model, mspec, n_fp, p.g_nmel, p.g_nout, speech20))
+    return (probs_v[energy20].cpu().numpy(), probs_g[speech20].cpu().numpy(),
+            ms_v, ms_g, speech20)
+
+
+def batch_at_tier(torch, dev, workdir, params, wavs, models):
+    """``batch_score`` of phase 2's WAVs with the ResNet at ``high`` on the
+    consumer thread while the producer threads run the VAD CNN and the VBx
+    features at ``highest``: what they prepared is bit-equal to a serial
+    run's, and the process's TF32 flags end as they began."""
+    from inaspeechsegmenter_tpu_torch import VoiceFemininityScoring
+    from inaspeechsegmenter_tpu_torch.utils.prefetch import prefetch_depth
+
+    os.environ["ISS_XVEC_PRECISION"] = "high"
+    try:
+        v = VoiceFemininityScoring("bgc", ffmpeg=None, device=dev,
+                                   model_dir=models, xvector_params=params,
+                                   allow_download=False)
+    finally:
+        os.environ.pop("ISS_XVEC_PRECISION", None)
+    check(v.xvector_model.net.precision == "high",
+          "the batch's ResNet was not built at tier high")
+    serial, prepared = v._prepare, {}
+
+    def recording(path):
+        prepared[path] = serial(path)
+        return prepared[path]
+
+    v._prepare = recording
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    csvs = [os.path.join(workdir, "vfs_high", os.path.basename(w)[:-4]
+                         + ".csv") for w in wavs]
+    _, n_ok, _, lmsg = v.batch_score(wavs, csvs)
+    check(n_ok == len(wavs), f"vfs batch at tier high: statuses {lmsg}")
+    after = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    check(after == flags, f"the batch left the TF32 flags at {after}, not "
+                          f"{flags}")
+    for wav in wavs:
+        got, want = prepared[wav], serial(wav)
+        check(got[0] == want[0] and got[3:] == want[3:]
+              and got[2].intervals == want[2].intervals,
+              f"{wav}: the batch's VAD differs from a serial run's")
+        check((got[1] is None and want[1] is None)
+              or torch.equal(got[1], want[1]),
+              f"{wav}: the batch's VBx features differ from a serial run's")
+    log(f"[tiers] batch_score with ISS_XVEC_PRECISION=high (prefetch depth "
+        f"{prefetch_depth()}): {len(wavs)} files; VAD and VBx features of "
+        f"the producer threads bit-equal to a serial run; TF32 flags "
+        f"{after} as before")
+
+
+def phase_tiers(torch, dev, workdir, vfs, params, files, wavs, models):
+    """(b): the CNN and x-vector precision tiers at full width."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from inaspeechsegmenter_tpu_torch import Segmenter
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNet101XVector
+    from inaspeechsegmenter_tpu_torch.vfs import (STEP, WINLEN,
+                                                  TorchResnetExtractor)
+
+    sig = files["mix600"]
+    wav = wavs[list(files).index("mix600")]
+    ref = {}
+    try:
+        for tier in TIERS:
+            os.environ["ISS_CNN_PRECISION"] = tier
+            s = Segmenter("smn", True, ffmpeg=None, device=dev,
+                          model_dir=models, allow_download=False)
+            check(s.vad.model.precision == s.gender.model.precision == tier,
+                  f"the CNNs were not built at tier {tier}")
+            lseg = s(wav)
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                s(wav)
+                walls.append(time.perf_counter() - t0)
+            probs_v, probs_g, ms_v, ms_g, speech20 = cnn_tier_run(
+                torch, s, sig, ref.get("speech20"))
+            if tier == "highest":
+                ref = dict(lseg=lseg, probs_v=probs_v, probs_g=probs_g,
+                           speech20=speech20)
+            n_diff, n_fr = frames_differ(lseg, ref["lseg"])
+            err_v = float(np.abs(probs_v - ref["probs_v"]).max())
+            err_g = float(np.abs(probs_g - ref["probs_g"]).max())
+            log(f"[tiers] ISS_CNN_PRECISION={tier}: mix600 warm wall "
+                f"{float(np.median(walls)) * 1e3!r} ms (median of {walls}), "
+                f"VAD CNN {ms_v!r} ms ({len(probs_v)} patches), gender CNN "
+                f"{ms_g!r} ms ({len(probs_g)} patches); {n_diff} of {n_fr} "
+                f"frames ({100 * n_diff / n_fr!r}%) differ from highest; "
+                f"max |p - p_highest| VAD {err_v!r} gender {err_g!r}")
+            if tier != "highest":
+                check(max(err_v, err_g) <= CNN_TIER_ATOL,
+                      f"CNN tier {tier} beyond {CNN_TIER_ATOL} of highest")
+                check(err_v > 0 and err_g > 0,
+                      f"CNN tier {tier} is bit-equal to highest")
+    finally:
+        os.environ.pop("ISS_CNN_PRECISION", None)
+
+    fea = vfs.features.features(sig.astype(np.float64) / 32768.0)
+    starts = list(range(0, fea.shape[0] - WINLEN, STEP))
+    embs = {}
+    try:
+        for tier in TIERS:
+            os.environ["ISS_XVEC_PRECISION"] = tier
+            xm = TorchResnetExtractor(params, ResNet101XVector(), dev)
+            check(xm.net.precision == tier,
+                  f"the ResNet was not built at tier {tier}")
+            xm.embeddings_from_features(fea, starts[:256])      # warm-up
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                embs[tier] = xm.embeddings_from_features(fea, starts)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            t_res = float(np.median(times))
+            with FlopCounterMode(display=False) as counter, torch.no_grad():
+                xm.net(fea[:WINLEN].T[None])
+            flops = counter.get_total_flops()
+            err = rel_l2(embs[tier], embs["highest"])
+            log(f"[tiers] ISS_XVEC_PRECISION={tier}: {len(starts)} windows "
+                f"in {t_res!r} s (median of {times}), windows/s "
+                f"{len(starts) / t_res!r}, ResNet TFLOP/s "
+                f"{len(starts) * flops / t_res / 1e12!r}; embeddings max "
+                f"relative L2 vs highest {err!r}")
+            if tier != "highest":
+                check(err <= XVEC_TIER_RTOL[tier],
+                      f"x-vector tier {tier} beyond {XVEC_TIER_RTOL[tier]}")
+                check(err > 0, f"x-vector tier {tier} is bit-equal to "
+                               "highest")
+    finally:
+        os.environ.pop("ISS_XVEC_PRECISION", None)
+
+    batch_at_tier(torch, dev, workdir, params, wavs, models)
+
+    tails = {}
+    try:
+        for mode in ("masked", "exact"):
+            os.environ["ISS_XVEC_TAIL"] = mode
+            out = vfs.xvector_model("mix600", fea, len(sig) / SR)
+            tails[mode] = out[-1]
+    finally:
+        os.environ.pop("ISS_XVEC_TAIL", None)
+    (key_m, _, emb_m), (key_e, _, emb_e) = tails["masked"], tails["exact"]
+    check(key_m == key_e and key_e.endswith(f"-{fea.shape[0]:08}")
+          and np.isfinite(emb_e).all(),
+          "the exact tail window differs in key, is no tail or not finite")
+    log(f"[tiers] ISS_XVEC_TAIL=exact: tail window {key_e}, relative L2 "
+        f"from the masked tail {rel_l2(emb_e[None], emb_m[None])!r}")
+
+
+STAND_IN_FFMPEG = """#!{python}
+import struct, sys
+import numpy as np
+sys.path.insert(0, {audio!r})
+from wav import read_wav
+args = sys.argv[1:]
+def val(flag):
+    return args[args.index(flag) + 1] if flag in args else None
+assert val('-f') == 'wav' and val('-acodec') == 'pcm_s16le'
+assert val('-ar') == '16000' and val('-ac') == '1' and args[-1] == 'pipe:1'
+sig, sr = read_wav(val('-i'), dtype='float64')
+if sig.ndim > 1:
+    sig = sig.mean(axis=1)
+if sr != 16000:
+    n = round(len(sig) * 16000 / sr)
+    sig = np.fft.irfft(np.fft.rfft(sig)[:n // 2 + 1], n) * (n / len(sig))
+a = int(float(val('-ss') or 0) * 16000)
+b = int(float(val('-to')) * 16000) if val('-to') else len(sig)
+pcm = np.clip(np.rint(sig[a:b] * 32768.0), -32768, 32767).astype('<i2')
+fmt = struct.pack('<HHIIHH', 1, 1, 16000, 32000, 2, 16)
+sys.stdout.buffer.write(b'RIFF' + b'\\xff' * 4 + b'WAVE' + b'fmt '
+                        + struct.pack('<I', 16) + fmt + b'data'
+                        + b'\\xff' * 4 + pcm.tobytes())
+"""
+
+
+def phase_ffmpeg(torch, dev, workdir, seg, files, wavs, models):
+    """(c): media decode through a stand-in ffmpeg on ``PATH``.  -> the
+    kernel launches of the decode runs and of the whole-file one."""
+    import stat
+
+    from inaspeechsegmenter_tpu_torch import Segmenter
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+
+    bindir = os.path.join(workdir, "bin")
+    os.makedirs(bindir)
+    script = os.path.join(bindir, "ffmpeg")
+    audio = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "inaspeechsegmenter_tpu_torch", "audio")
+    with open(script, "w") as fh:
+        fh.write(STAND_IN_FFMPEG.format(python=sys.executable, audio=audio))
+    os.chmod(script, os.stat(script).st_mode | stat.S_IEXEC)
+    os.environ["PATH"] = bindir + os.pathsep + os.environ.get("PATH", "")
+
+    mono = files["mix60"].astype(np.float64) / 32768.0
+    n = round(len(mono) * 44100 / SR)
+    up = np.fft.irfft(np.fft.rfft(mono), n) * (n / len(mono))
+    wav44 = os.path.join(workdir, "mix60_44k_stereo.wav")
+    write_wav(wav44, np.clip(np.stack([up, 0.8 * up], axis=1), -1, 1)
+              .astype(np.float32), 44100, subtype="FLOAT")
+
+    seg_ff = Segmenter("smn", True, ffmpeg="ffmpeg", device=dev,
+                       model_dir=models, allow_download=False)
+    reset_kernel_counts()
+    whole = seg_ff(wav44)
+    per_file = kernel_counts()
+    start, stop = FFMPEG_WINDOW
+    window = seg_ff(wav44, start_sec=start, stop_sec=stop)
+    launches = kernel_counts()
+    for lseg, (a, b) in ((whole, (0.0, len(mono) / SR)), (window, (start,
+                                                                   stop))):
+        check(lseg[0][1] == a and abs(lseg[-1][2] - b) <= 0.04,
+              f"ffmpeg decode: segments span {lseg[0][1]}-{lseg[-1][2]}, "
+              f"not {a}-{b}")
+        check(all(x[2] == y[1] for x, y in zip(lseg[:-1], lseg[1:])),
+              "ffmpeg decode: segments do not tile the window")
+    for name, k in launches.items():
+        check(per_file[name] > 0 and k > per_file[name],
+              f"the ffmpeg path did not launch the {name} kernel")
+    n_diff, n_fr = frames_differ(whole, seg(wavs[list(files).index("mix60")]))
+    log(f"[real] ffmpeg stand-in, 44.1 kHz stereo mix60: {len(whole)} "
+        f"segments, window {FFMPEG_WINDOW} {len(window)} segments; "
+        f"launches {launches} (whole file {per_file}); {n_diff} of {n_fr} "
+        "frames differ from the 16 kHz WAV's labels (resampled twice)")
+    try:
+        Segmenter("smn", True, ffmpeg="no-such-binary", device=dev,
+                  model_dir=models, allow_download=False)
+    except Exception as exc:            # the reference's bare Exception
+        check(str(exc) == "ffmpeg program not found",
+              f"unknown ffmpeg binary raised {exc!r}")
+    else:
+        raise RuntimeError("check failed: an unknown ffmpeg binary was "
+                           "accepted")
+    return launches, per_file
+
+
+def phase_real_inputs(torch, dev, workdir, seg, vfs, params, files, wavs,
+                      models):
+    """hdf5 weights, precision tiers, ffmpeg decode.  -> the kernel
+    launches of the ffmpeg path's run and of its whole-file decode."""
+    phase_hdf5(torch, dev, workdir, seg, vfs, files, wavs, models)
+    phase_tiers(torch, dev, workdir, vfs, params, files, wavs, models)
+    return phase_ffmpeg(torch, dev, workdir, seg, files, wavs, models)
+
 
 def main():
     import torch
@@ -940,22 +1349,28 @@ def main():
     log(f"[build] {os.path.basename(lib)} built and loaded in "
         f"{time.perf_counter() - t0!r} s")
 
+    # the plain versions of the kernels compare on the card with TF32 off;
+    # the port's own calls set their flags in scopes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = [phase_features(torch, dev), phase_viterbi(torch, dev)]
     with tempfile.TemporaryDirectory() as workdir:
         seg, launches, files, wavs, models, per_file = phase_main(
             torch, dev, workdir)
-        vfs, launches_vfs, per_vfs_file = phase_vfs(torch, dev, workdir,
-                                                    files, wavs, models)
+        vfs, params, launches_vfs, per_vfs_file = phase_vfs(
+            torch, dev, workdir, files, wavs, models)
         per_online_file = phase_online(torch, dev, workdir, seg, vfs, files,
                                        wavs)
+        launches_real, per_ffmpeg_file = phase_real_inputs(
+            torch, dev, workdir, seg, vfs, params, files, wavs, models)
     for k in kernels:
         k["launches"] = (launches[k["name"]] + launches_vfs[k["name"]]
-                         + per_online_file[k["name"]])
+                         + per_online_file[k["name"]]
+                         + launches_real[k["name"]])
         k["launches_per_file"] = {"segmentation": per_file[k["name"]],
                                   "vfs": per_vfs_file[k["name"]],
-                                  "online": per_online_file[k["name"]]}
+                                  "online": per_online_file[k["name"]],
+                                  "ffmpeg": per_ffmpeg_file[k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ Speech / music / noise / gender segmentation of 16 kHz audio
 (``Segmenter``) and voice femininity scoring (``VoiceFemininityScoring``:
 VBx features, a ResNet101 x-vector network and the scoring MLP), both also
 incremental over a growing recording (``OnlineSegmenter``, ``OnlineVFS``),
-with the JAX package ``inaspeechsegmenter_tpu`` as their reference.  Plain
+with the JAX package ``inaspeechsegmenter_tpu`` as their reference.  Any
+media decodes through ffmpeg; the models load by their registry names from
+the released Keras ``.hdf5`` files, read without h5py, or from their
+converted npz (``models``).  Plain
 tensor code is PyTorch; the fused SIDEKIT feature kernel and the Viterbi
 decode are CUDA kernels written for Hopper (``csrc/``), each beside a plain
 PyTorch version that CPU tensors run.  This package imports torch and

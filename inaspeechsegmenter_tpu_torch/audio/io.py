@@ -1,16 +1,23 @@
-"""Media decode: 16 kHz WAV -> mono PCM on the host.
+"""Media decode: anything -> 16 kHz mono PCM on the host.
 
-Port of the no-ffmpeg path of ``inaspeechsegmenter_tpu/audio/io.py``
-(reference io.py:37-55): only local 16 kHz WAV files are accepted,
-start/stop and urls raise NotImplementedError, and a file that is not a
-WAV raises ``WavFormatError``.  ffmpeg decoding and the native resampler
-are not ported yet: ``check_ffmpeg`` rejects an ffmpeg binary, and a WAV
-at another rate raises.
+Port of ``inaspeechsegmenter_tpu/audio/io.py`` (reference io.py:32-79):
+
+* With ffmpeg, any media file or url is decoded by an ffmpeg subprocess
+  piping 16 kHz mono pcm_s16le WAV to stdout, with start/stop windows
+  passed as ``-ss`` / ``-to``.
+* With ``ffmpeg=None``, only local 16 kHz WAV files are accepted and
+  start/stop/url raise NotImplementedError, the reference's no-ffmpeg
+  contract (io.py:37-55), with the port's RIFF reader in place of
+  libsndfile.  The JAX package's native resampler is not ported: a WAV at
+  another rate raises.
 """
 
 from __future__ import annotations
 
+import shutil
 import struct
+import subprocess
+import warnings
 
 import numpy as np
 
@@ -19,41 +26,84 @@ from .wav import WavFormatError, _read_chunks, read_wav
 SR = 16000
 
 
-def media2sig16kmono(medianame, start_sec=None, stop_sec=None, dtype="float64"):
-    """Decode a 16 kHz WAV file to a mono signal.
+def _cast_signal(sig, dtype):
+    """Cast float samples to the requested dtype: integer targets are
+    rounded and saturated (a bare astype would truncate and WRAP overshoot
+    past full scale into opposite-sign clicks)."""
+    out_dtype = np.dtype(dtype)
+    if out_dtype.kind in "iu":
+        info = np.iinfo(out_dtype)
+        sig = np.clip(np.rint(sig), info.min, info.max)
+    return sig.astype(out_dtype)
 
-    :param dtype: numpy dtype, or 'auto' — int16 when the file is 16-bit
-        PCM mono (a half-size device upload; int16/2^15 is the identical
-        float32), float32 otherwise.
+
+def media2sig16kmono(medianame, start_sec=None, stop_sec=None,
+                     ffmpeg="ffmpeg", dtype="float64"):
+    """Decode a media file to a 16 kHz mono signal.
+
+    :param ffmpeg: the ffmpeg binary, or None for 16 kHz WAV input only.
+    :param dtype: numpy dtype, or 'auto' — int16 when the source is
+        losslessly 16-bit PCM mono (a half-size device upload; int16/2^15
+        is the identical float32), float32 otherwise.
     :return: 1-D numpy array.
     """
-    if start_sec is not None or stop_sec is not None:
-        raise NotImplementedError(
-            f"start_sec={start_sec} and stop_sec={stop_sec} cannot be set "
-            f"when running without ffmpeg. Please cut down your audio "
-            f"files beforehand or use ffmpeg."
-        )
-    if medianame.startswith("http://") or medianame.startswith("https://"):
-        raise NotImplementedError(
-            f"Without ffmpeg you cannot process media content on http "
-            f"servers. You need to download your audio files beforehand "
-            f"or use ffmpeg. You gave medianame={medianame}."
-        )
     if dtype == "auto":
-        dtype = "int16" if _is_pcm16_mono_16k(medianame) else "float32"
-    sig, sr = read_wav(medianame, dtype=dtype)
+        return _media2sig_auto(medianame, start_sec, stop_sec, ffmpeg)
+    if ffmpeg is None:
+        if start_sec is not None or stop_sec is not None:
+            raise NotImplementedError(
+                f"start_sec={start_sec} and stop_sec={stop_sec} cannot be set "
+                f"when running without ffmpeg. Please cut down your audio "
+                f"files beforehand or use ffmpeg."
+            )
+        if medianame.startswith("http://") or medianame.startswith("https://"):
+            raise NotImplementedError(
+                f"Without ffmpeg you cannot process media content on http "
+                f"servers. You need to download your audio files beforehand "
+                f"or use ffmpeg. You gave medianame={medianame}."
+            )
+        sig, sr = read_wav(medianame, dtype=dtype)
+        if sr != SR:
+            raise ValueError(
+                f"Without ffmpeg, only files sampled at 16000 Hz are "
+                f"supported. The file {medianame} is sampled at {sr} Hz.")
+        if sig.ndim > 1:
+            # mono mixdown, rounded and saturated for integer dtypes
+            sig = _cast_signal(sig.mean(axis=1), dtype)
+        return sig
+
+    cmd = [ffmpeg, "-i", medianame, "-f", "wav", "-acodec", "pcm_s16le",
+           "-ar", str(SR), "-ac", "1"]
+    if start_sec is not None:
+        cmd += ["-ss", "%f" % start_sec]
+    if stop_sec is not None:
+        cmd += ["-to", "%f" % stop_sec]
+    cmd += ["pipe:1"]
+
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    if proc.returncode != 0:
+        raise RuntimeError(proc.stderr.decode(errors="replace"))
+    # ffmpeg writes a streaming WAV with an unknown-length data chunk; the
+    # RIFF sizes may be 0xFFFFFFFF — patch the actual size before parsing
+    sig, sr = read_wav(_fix_streamed_riff(proc.stdout), dtype=dtype)
     if sr != SR:
-        raise ValueError(
-            f"Without ffmpeg, only files sampled at 16000 Hz are "
-            f"supported. The file {medianame} is sampled at {sr} Hz.")
-    if sig.ndim > 1:
-        # mono mixdown, rounded and saturated for integer dtypes
-        sig = sig.mean(axis=1)
-        if np.dtype(dtype).kind in "iu":
-            info = np.iinfo(dtype)
-            sig = np.clip(np.rint(sig), info.min, info.max)
-        sig = sig.astype(dtype)
+        raise RuntimeError(f"{ffmpeg} returned {sr} Hz audio, not {SR} Hz")
     return sig
+
+
+def _media2sig_auto(medianame, start_sec, stop_sec, ffmpeg):
+    if ffmpeg is not None:
+        # ffmpeg emits pcm_s16le: int16 is always exact on this path
+        return media2sig16kmono(medianame, start_sec, stop_sec, ffmpeg,
+                                "int16")
+    if (start_sec is not None or stop_sec is not None
+            or medianame.startswith("http://")
+            or medianame.startswith("https://")):
+        # the float path enforces (and raises) the no-ffmpeg restrictions
+        return media2sig16kmono(medianame, start_sec, stop_sec, ffmpeg,
+                                "float32")
+    dtype = "int16" if _is_pcm16_mono_16k(medianame) else "float32"
+    return media2sig16kmono(medianame, None, None, None, dtype)
 
 
 def _is_pcm16_mono_16k(medianame):
@@ -75,10 +125,43 @@ def _is_pcm16_mono_16k(medianame):
     return False
 
 
+def _fix_streamed_riff(blob: bytes) -> bytes:
+    """Rewrite bogus RIFF/data sizes emitted when ffmpeg streams to a pipe."""
+    if len(blob) < 44:
+        return blob
+    ba = bytearray(blob)
+    # clamp to the 4-byte RIFF field for >= 4 GiB streams (~37 h at 16 kHz
+    # mono s16le); 0xFFFFFFFE keeps the s16 sample alignment and read_wav
+    # truncates payloads to whole frames
+    ba[4:8] = min(len(blob) - 8, 0xFFFFFFFE).to_bytes(4, "little")
+    # walk the chunk headers for the real data chunk — a raw find() can
+    # land inside LIST/INFO metadata text containing "data" (ffmpeg passes
+    # source tags through).  Pre-data chunk sizes are valid (ffmpeg writes
+    # them before streaming); the data chunk's own bogus size is what is
+    # fixed here, and the walk stops there.
+    idx = -1
+    pos = 12
+    while pos + 8 <= len(blob):
+        cid = blob[pos:pos + 4]
+        size = int.from_bytes(blob[pos + 4:pos + 8], "little")
+        if cid == b"data":
+            idx = pos
+            break
+        pos += 8 + size + (size & 1)
+    if idx >= 0:
+        size = min(len(blob) - idx - 8, 0xFFFFFFFE)
+        if len(blob) - idx - 8 > size:
+            warnings.warn(
+                "streamed WAV exceeds the 4 GiB RIFF limit (~37 h at "
+                "16 kHz mono); audio past that point is dropped — use "
+                "start_sec/stop_sec to window very long media")
+        ba[idx + 4: idx + 8] = size.to_bytes(4, "little")
+    return bytes(ba)
+
+
 def check_ffmpeg(ffmpeg):
-    """Only ``ffmpeg=None`` (WAV input) is ported."""
-    if ffmpeg is not None:
-        raise NotImplementedError(
-            "ffmpeg decoding is not ported to the PyTorch package yet; pass "
-            "ffmpeg=None (16 kHz WAV input)")
+    """Validate the ffmpeg binary like the reference ctor
+    (segmenter.py:227-231): ``None`` means WAV input only."""
+    if ffmpeg is not None and shutil.which(ffmpeg) is None:
+        raise Exception("ffmpeg program not found")
     return ffmpeg

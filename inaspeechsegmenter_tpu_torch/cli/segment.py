@@ -5,11 +5,11 @@ scripts/ina_speech_segmenter.py:45-84) — -i input globs, -o output dir,
 -s batch size, -d vad engine, -g detect gender, -b ffmpeg binary, -e
 export format, -r energy ratio, --follow / --follow_idle — plus
 ``--device`` (default cuda; the run fails rather than falling back to the
-CPU).  Only ``-b none`` (16 kHz WAV input, the default here) is ported;
-``--parallel`` waits for the multi-GPU engine.
+CPU).  ``-b`` defaults to ``ffmpeg``; ``-b none`` takes 16 kHz WAV input
+only.  ``--parallel`` waits for the multi-GPU engine.
 
-    python -m inaspeechsegmenter_tpu_torch.cli.segment -i in.wav -o outdir \\
-        -b none --device cuda
+    python -m inaspeechsegmenter_tpu_torch.cli.segment -i in.mp3 -o outdir \\
+        --device cuda
     python -m inaspeechsegmenter_tpu_torch.cli.segment -i growing.wav \\
         -o outdir --follow --follow_idle 10
 """
@@ -20,6 +20,8 @@ import argparse
 import glob
 import os
 import warnings
+
+from ._common import resolve_ffmpeg
 
 description = (
     "Segment media files into speech/music(/noise) regions, optionally "
@@ -43,9 +45,9 @@ def build_parser():
                         default='smn')
     parser.add_argument('-g', '--detect_gender', choices=['true', 'false'],
                         default='true')
-    parser.add_argument('-b', '--ffmpeg_binary', default='none',
-                        help="ffmpeg binary; only 'none' (16 kHz WAV input) "
-                             "is ported.")
+    parser.add_argument('-b', '--ffmpeg_binary', default='ffmpeg',
+                        help="Your custom binary of ffmpeg. Set it to 'none' "
+                             "to read 16 kHz WAV files without ffmpeg.")
     parser.add_argument('-e', '--export_format', choices=['csv', 'textgrid'],
                         default='csv')
     parser.add_argument('-r', '--energy_ratio', default=0.03, type=float)
@@ -65,11 +67,7 @@ def build_parser():
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    ffmpeg = args.ffmpeg_binary
-    if ffmpeg.lower() == 'none' or ffmpeg == '':
-        print('Disabling ffmpeg. Make sure your audio files are already '
-              'sampled at 16kHz.')
-        ffmpeg = None
+    ffmpeg = resolve_ffmpeg(args.ffmpeg_binary)
     if args.follow:
         if len(args.input) != 1:
             parser.error('--follow takes exactly one input file')

@@ -4,13 +4,13 @@ Flag-compatible with the JAX package's ``cli/vfs.py`` for the flags this
 port supports — -i input globs, -o output dir, -c model criteria, -b ffmpeg
 binary, --skipifexist, --nbtry, --follow / --follow_idle — plus
 ``--device`` (default cuda; the run fails rather than falling back to the
-CPU).  ``-b`` accepts only ``none`` (16 kHz WAV input, the default here);
-``--parallel`` waits for the multi-GPU engine.  Writes one tab-separated
-csv per input with columns ``score / speech_duration / nb_vectors``; model
-weights come from ``$ISS_TPU_MODEL_DIR``.
+CPU).  ``-b`` defaults to ``ffmpeg``; ``-b none`` takes 16 kHz WAV input
+only.  ``--parallel`` waits for the multi-GPU engine.  Writes one
+tab-separated csv per input with columns ``score / speech_duration /
+nb_vectors``; model weights are resolved by ``models.registry``.
 
-    python -m inaspeechsegmenter_tpu_torch.cli.vfs -i in.wav -o outdir \\
-        -c bgc -b none --device cuda
+    python -m inaspeechsegmenter_tpu_torch.cli.vfs -i in.mp3 -o outdir \\
+        -c bgc --device cuda
     python -m inaspeechsegmenter_tpu_torch.cli.vfs -i growing.wav -o outdir \\
         --follow --follow_idle 10
 """
@@ -21,6 +21,8 @@ import argparse
 import glob
 import os
 import warnings
+
+from ._common import resolve_ffmpeg
 
 description = (
     "Score voice femininity of media files: x-vector speaker embeddings "
@@ -44,9 +46,9 @@ def build_parser():
                         help='Gender-detection model criteria: bgc = '
                              'interspeech2023_all (VAD overlap 0.7), vfp = '
                              'interspeech2023_cvfr (0.62).')
-    parser.add_argument('-b', '--ffmpeg_binary', default='none',
-                        help="ffmpeg binary; only 'none' (16 kHz WAV input) "
-                             "is ported.")
+    parser.add_argument('-b', '--ffmpeg_binary', default='ffmpeg',
+                        help="Your custom binary of ffmpeg. Set it to 'none' "
+                             "to read 16 kHz WAV files without ffmpeg.")
     parser.add_argument('--skipifexist', action='store_true',
                         help='Skip inputs whose output csv already exists.')
     parser.add_argument('--nbtry', type=int, default=1,
@@ -66,8 +68,7 @@ def build_parser():
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.ffmpeg_binary.lower() not in ('none', ''):
-        parser.error("only -b none (16 kHz WAV input) is ported")
+    ffmpeg = resolve_ffmpeg(args.ffmpeg_binary)
     if args.follow:
         if len(args.input) != 1:
             parser.error('--follow takes exactly one input file')
@@ -90,7 +91,7 @@ def main(argv=None):
     from inaspeechsegmenter_tpu_torch import vfs
 
     scorer = vfs.VoiceFemininityScoring(
-        gd_model_criteria=args.gd_model_criteria, ffmpeg=None,
+        gd_model_criteria=args.gd_model_criteria, ffmpeg=ffmpeg,
         device=args.device)
     output_files = [
         os.path.join(odir, os.path.splitext(os.path.basename(e))[0] + '.csv')

@@ -12,7 +12,8 @@ PyTorch on the frontend's device:
 - ZMEANSOURCE, the per-frame mean removed;
 - pre-emphasis 0.97, the first sample against itself;
 - the Povey window (Hann^0.85 over ``linspace(0, 2*pi, 400)``);
-- the 512-point power spectrum as two float32 matmuls;
+- the 512-point power spectrum as two float32 matmuls, TF32 off
+  (``models.layers.precision_scope("highest")``);
 - ``log(max(1, spec @ fbank))`` with a 64-channel 20-7600 Hz Kaldi bank;
 - floating-window CMVN (150 frames left, 149 right, mean only) as a
   float32 cumsum
@@ -34,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.layers import precision_scope
 from ..utils.device import resolve_device
 from .mel import kaldi_mel_fbank
 from .sidekit import _dft_matrices
@@ -120,9 +122,10 @@ class VbxFrontend:
         """The device half: ((T+2)*HOP,) float32 ``host_segment`` output
         on ``self.device`` -> (T, 64) features."""
         n_frames = seg.shape[0] // HOP - 2
-        parts = [self._log_fbank(seg[f0 * HOP:(f0 + min(CHUNK, n_frames - f0)
-                                               + 2) * HOP])
-                 for f0 in range(0, n_frames, CHUNK)]
+        with precision_scope("highest"):
+            parts = [self._log_fbank(seg[f0 * HOP:(f0 + min(
+                CHUNK, n_frames - f0) + 2) * HOP])
+                for f0 in range(0, n_frames, CHUNK)]
         if not parts:
             return torch.empty((0, FEAT_DIM), dtype=torch.float32,
                                device=seg.device)

@@ -1,26 +1,153 @@
-"""PyTorch inference layers for the Keras patch-CNN vocabulary.
+"""PyTorch inference layers for the Keras vocabulary, and the CNN ladder.
 
-Counterparts of ``inaspeechsegmenter_tpu/models/layers.py`` for the layers
-the patch CNNs use: Conv2D (Keras SAME/VALID padding, no dilation),
-BatchNormalization (moving statistics, epsilon from the config),
-MaxPooling2D (VALID), Flatten (in
-Keras NHWC order), Dense, and the relu / softmax / sigmoid / linear
-activations (sigmoid ends the VFS scoring MLP).
-Activations run channels-first (NCHW) inside the model; Flatten restores
-the NHWC element order that the Dense weights were trained against.  Any
-other layer class or activation raises.
+Counterparts of every entry of ``LAYER_FNS`` / ``MERGE_FNS`` and every
+activation of ``inaspeechsegmenter_tpu/models/layers.py``: convolutions
+(Conv2D with dilation, DepthwiseConv2D, Conv1D with causal padding),
+Dense, BatchNormalization (moving statistics), max and average pooling
+(SAME padding: ``-inf`` pads for max, padded cells left out of the average),
+the global pools, Flatten, Reshape, Permute, ZeroPadding2D, the Activation,
+ReLU, LeakyReLU and Softmax layers, the identity layers (Dropout and kin),
+and the Add, Concatenate and Multiply merges.  Inference semantics only,
+as ``keras.Model.predict``.
+
+Layout: a rank-4 value is held channels-first (NCHW) inside a model, for
+cuDNN; every other rank keeps its Keras layout.  Layers that name a Keras
+axis (BatchNormalization, Softmax, Concatenate, the softmax activation)
+map it through ``keras_dim``; Flatten, Reshape, Permute and a Dense on a
+rank-4 value go through the Keras (NHWC) order, so imported weights apply
+unchanged.
+
+The CNN ladder (``ISS_CNN_PRECISION``, read once when a model is built;
+an empty value means the default):
+
+- ``highest``: float32 with TF32 off, the exact tier and the default on
+  every device (the JAX CPU tier);
+- ``high``: float32 with TF32 tensor cores (10 mantissa bits in the
+  products): the card's nearest tier to the TPU's bf16 3-pass ``HIGH``,
+  and less exact than it;
+- ``default`` / ``bf16``: bf16 operands with float32 accumulation; each
+  conv and matmul returns float32, as JAX's ``DEFAULT`` returns f32.  The
+  bf16 weight copies are made when the layer is built.
 
 Convolutions and matmuls go to cuDNN / cuBLAS, as XLA ran them outside any
-Pallas kernel in the JAX package.  The exact tier is float32 with TF32 off
-(the JAX CPU default, ``ISS_CNN_PRECISION=highest``); the Segmenter turns
-TF32 off on CUDA.
+Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+CNN_TIERS = {"highest": "highest", "high": "high", "default": "bf16",
+             "bf16": "bf16"}
+
+
+def resolve_precision(mode, table, env_name):
+    """A tier name -> its tier; an unknown name raises ``ValueError``
+    naming the variable (never a silent fallback to another tier)."""
+    tier = table.get(mode.lower())
+    if tier is None:
+        raise ValueError(
+            f"{env_name}={mode!r} is not a known precision; expected one of "
+            f"{sorted(table)}")
+    return tier
+
+
+def cnn_precision():
+    """The tier ``ISS_CNN_PRECISION`` asks for (``highest`` if unset)."""
+    return resolve_precision(os.environ.get("ISS_CNN_PRECISION") or "highest",
+                             CNN_TIERS, "ISS_CNN_PRECISION")
+
+
+# The TF32 flags are process-wide, and the port reaches cuBLAS and cuDNN
+# from more than one thread: ``batch_score``'s prefetch producers run the
+# VAD CNN and the VBx features while the consumer runs the ResNet.  One
+# lock, held from a scope's entry to its exit, keeps every such call under
+# its own scope's flags.
+_FLAGS_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def precision_scope(tier):
+    """TF32 for matmuls and cuDNN convolutions on for ``high``, off for
+    the other tiers, for the calls made inside the scope; the flags are
+    restored on exit.  The scope holds ``_FLAGS_LOCK`` throughout, so a
+    scope on another thread waits for this one to end: no call runs under
+    another thread's flags, and interleaved saves and restores cannot leave
+    the flags changed.  Every cuBLAS and cuDNN call of the port runs in
+    such a scope."""
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    with _FLAGS_LOCK:
+        saved = cuda.allow_tf32, cudnn.allow_tf32
+        cuda.allow_tf32 = cudnn.allow_tf32 = tier == "high"
+        try:
+            yield
+        finally:
+            cuda.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def tiered_product(fn, x, weight, bias, weight_bf16, channel_dim=1):
+    """``fn(x, weight, bias)``, a conv or matmul, at its tier: with a bf16
+    copy of the weight the operands go bf16 and the product comes back as
+    float32, the bias added in float32 along ``channel_dim``."""
+    if weight_bf16 is None:
+        return fn(x, weight, bias)
+    out = fn(x.to(torch.bfloat16), weight_bf16, None).float()
+    if bias is None:
+        return out
+    shape = [1] * out.dim()
+    shape[channel_dim] = -1
+    return out + bias.reshape(shape)
+
+
+def keras_dim(axis, ndim):
+    """The tensor dim holding Keras axis ``axis`` of a rank-``ndim`` value
+    (rank 4 is held NCHW)."""
+    a = axis % ndim
+    return (0, 2, 3, 1)[a] if ndim == 4 else a
+
+
+def to_keras(x):
+    return x.permute(0, 2, 3, 1) if x.dim() == 4 else x
+
+
+def from_keras(x):
+    return x.permute(0, 3, 1, 2) if x.dim() == 4 else x
+
+
+def _softmax(x, axis=-1):
+    return F.softmax(x, dim=keras_dim(axis, x.dim()))
+
+
+ACTIVATIONS = {
+    None: lambda x: x,
+    "linear": lambda x: x,
+    "relu": F.relu,
+    "softmax": _softmax,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "elu": F.elu,
+    "selu": F.selu,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "softplus": F.softplus,
+    "exponential": torch.exp,
+    # the JAX package's hard_sigmoid (not Keras 2's 0.2x + 0.5)
+    "hard_sigmoid": lambda x: torch.clamp(x / 6.0 + 0.5, 0.0, 1.0),
+    "swish": F.silu,
+    "silu": F.silu,
+}
+
+
+def _activation(name):
+    if name not in ACTIVATIONS:
+        raise NotImplementedError(f"activation {name!r}")
+    return ACTIVATIONS[name]
 
 
 def _pair(v):
@@ -29,105 +156,334 @@ def _pair(v):
     return (int(v), int(v))
 
 
-def _activation(name):
-    if name is None or name == "linear":
-        return lambda x: x
-    if name == "relu":
-        return F.relu
-    if name == "softmax":
-        return lambda x: F.softmax(x, dim=-1)
-    if name == "sigmoid":
-        return torch.sigmoid
-    raise NotImplementedError(f"activation {name!r}")
+def _single(v):
+    return int(v[0]) if isinstance(v, (list, tuple)) else int(v)
 
 
 def _same_pads(size, kernel, stride):
     """TF/Keras SAME padding (before, after) along one axis: the extra row
-    goes after, so even kernels pad asymmetrically (layers.py:106-109)."""
+    goes after, so even kernels pad asymmetrically."""
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
 
 
-class Conv2D(nn.Module):
-    """:param kernel: (cout, cin, kh, kw) tensor; ``bias`` (cout,) or None."""
+def _same_pad2d(x, kernel, stride, value=0.0):
+    ph = _same_pads(x.shape[2], kernel[0], stride[0])
+    pw = _same_pads(x.shape[3], kernel[1], stride[1])
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
 
-    def __init__(self, cfg, kernel, bias=None):
+
+class _Weighted(nn.Module):
+    """A conv or matmul layer at its precision tier: ``bf16`` keeps a bf16
+    copy of the weight and returns the product as float32; the bias is
+    added in float32."""
+
+    channel_dim = 1
+
+    def __init__(self, cfg, weight, bias, tier):
         super().__init__()
+        self.act = _activation(cfg.get("activation"))
+        self.register_buffer("weight", weight)
+        self.register_buffer("bias", bias)
+        self.register_buffer(
+            "weight_bf16", weight.to(torch.bfloat16) if tier == "bf16"
+            else None)
+
+    def product(self, fn, x):
+        return tiered_product(fn, x, self.weight, self.bias, self.weight_bf16,
+                              self.channel_dim)
+
+
+class Conv2D(_Weighted):
+    """:param weight: (cout, cin, kh, kw) tensor; ``bias`` (cout,) or None."""
+
+    def __init__(self, cfg, weight, bias=None, tier="highest"):
+        super().__init__(cfg, weight, bias, tier)
         self.stride = _pair(cfg.get("strides", 1))
-        if _pair(cfg.get("dilation_rate", 1)) != (1, 1):
-            raise NotImplementedError("dilated Conv2D")
+        self.dilation = _pair(cfg.get("dilation_rate", 1))
         self.padding = cfg.get("padding", "valid").upper()
         if self.padding not in ("SAME", "VALID"):
             raise NotImplementedError(f"Conv2D padding {self.padding!r}")
-        self.act = _activation(cfg.get("activation"))
-        self.register_buffer("kernel", kernel)
-        self.register_buffer("bias", bias)
 
     def forward(self, x):
         if self.padding == "SAME":
-            kh, kw = self.kernel.shape[2:]
-            ph = _same_pads(x.shape[2], kh, self.stride[0])
-            pw = _same_pads(x.shape[3], kw, self.stride[1])
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        out = F.conv2d(x, self.kernel, self.bias, stride=self.stride)
-        return self.act(out)
+            kh, kw = self.weight.shape[2:]
+            eff = ((kh - 1) * self.dilation[0] + 1,
+                   (kw - 1) * self.dilation[1] + 1)
+            x = _same_pad2d(x, eff, self.stride)
+        return self.act(self.product(
+            lambda v, w, b: F.conv2d(v, w, b, self.stride, 0, self.dilation),
+            x))
+
+
+class DepthwiseConv2D(_Weighted):
+    """:param weight: (cin * depth_multiplier, 1, kh, kw), the grouped-conv
+    form of the Keras (kh, kw, cin, depth_multiplier) kernel."""
+
+    def __init__(self, cfg, weight, bias=None, tier="highest"):
+        super().__init__(cfg, weight, bias, tier)
+        self.stride = _pair(cfg.get("strides", 1))
+        self.padding = cfg.get("padding", "valid").upper()
+        if self.padding not in ("SAME", "VALID"):
+            raise NotImplementedError(
+                f"DepthwiseConv2D padding {self.padding!r}")
+
+    def forward(self, x):
+        if self.padding == "SAME":
+            x = _same_pad2d(x, self.weight.shape[2:], self.stride)
+        return self.act(self.product(
+            lambda v, w, b: F.conv2d(v, w, b, self.stride, groups=v.shape[1]),
+            x))
+
+
+class Conv1D(_Weighted):
+    """Keras (B, W, C) values.  :param weight: (cout, cin, kw)."""
+
+    def __init__(self, cfg, weight, bias=None, tier="highest"):
+        super().__init__(cfg, weight, bias, tier)
+        self.stride = _single(cfg.get("strides", 1))
+        self.dilation = _single(cfg.get("dilation_rate", 1))
+        self.padding = cfg.get("padding", "valid").upper()
+        if self.padding not in ("SAME", "VALID", "CAUSAL"):
+            raise NotImplementedError(f"Conv1D padding {self.padding!r}")
+
+    def forward(self, x):
+        x = x.transpose(1, 2)
+        eff = (self.weight.shape[2] - 1) * self.dilation + 1
+        if self.padding == "CAUSAL":
+            # Keras causal = left-pad by (kw-1)*dilation, then VALID
+            x = F.pad(x, (eff - 1, 0))
+        elif self.padding == "SAME":
+            x = F.pad(x, _same_pads(x.shape[2], eff, self.stride))
+        out = self.product(
+            lambda v, w, b: F.conv1d(v, w, b, self.stride, 0, self.dilation),
+            x)
+        return self.act(out.transpose(1, 2))
+
+
+class Dense(_Weighted):
+    """:param weight: (out, in) tensor (the Keras kernel transposed)."""
+
+    channel_dim = -1
+
+    def forward(self, x):
+        return self.act(from_keras(self.product(F.linear, to_keras(x))))
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the channel axis (Keras axis -1 / 3)."""
+    """Inference batch norm along the configured Keras axis."""
 
     def __init__(self, cfg, gamma, beta, mean, var):
         super().__init__()
         axis = cfg.get("axis", -1)
-        if isinstance(axis, (list, tuple)):
-            axis = axis[0]
-        if axis not in (-1, 3):
-            raise NotImplementedError(f"BatchNormalization axis {axis}")
+        self.axis = int(axis[0] if isinstance(axis, (list, tuple)) else axis)
         self.eps = float(cfg.get("epsilon", 1e-3))
         for name, t in (("gamma", gamma), ("beta", beta), ("mean", mean),
                         ("var", var)):
-            self.register_buffer(name, None if t is None
-                                 else t.reshape(1, -1, 1, 1))
+            self.register_buffer(name, t)
 
     def forward(self, x):
-        out = (x - self.mean) * torch.rsqrt(self.var + self.eps)
+        shape = [1] * x.dim()
+        d = keras_dim(self.axis, x.dim())
+        shape[d] = x.shape[d]
+        out = (x - self.mean.reshape(shape)) * torch.rsqrt(
+            self.var.reshape(shape) + self.eps)
         if self.gamma is not None:
-            out = out * self.gamma
+            out = out * self.gamma.reshape(shape)
         if self.beta is not None:
-            out = out + self.beta
+            out = out + self.beta.reshape(shape)
         return out
 
 
-class MaxPool2D(nn.Module):
+class _Pool2D(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.pool = _pair(cfg.get("pool_size", 2))
         self.stride = _pair(cfg.get("strides") or cfg.get("pool_size", 2))
-        padding = cfg.get("padding", "valid").upper()
-        if padding != "VALID":
-            raise NotImplementedError(f"MaxPooling2D padding {padding!r}")
+        self.padding = cfg.get("padding", "valid").upper()
+        if self.padding not in ("SAME", "VALID"):
+            raise NotImplementedError(f"pooling padding {self.padding!r}")
 
+
+class MaxPool2D(_Pool2D):
     def forward(self, x):
+        if self.padding == "SAME":
+            x = _same_pad2d(x, self.pool, self.stride, value=-float("inf"))
         return F.max_pool2d(x, self.pool, self.stride)
+
+
+class AvgPool2D(_Pool2D):
+    def forward(self, x):
+        if self.padding == "VALID":
+            return F.avg_pool2d(x, self.pool, self.stride)
+        # Keras leaves padded cells out of the denominator: window sums
+        # over the zero-padded input divided by the valid-cell counts
+        summed = F.avg_pool2d(_same_pad2d(x, self.pool, self.stride),
+                              self.pool, self.stride, divisor_override=1)
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        count = F.avg_pool2d(_same_pad2d(ones, self.pool, self.stride),
+                             self.pool, self.stride, divisor_override=1)
+        return summed / count
+
+
+class _GlobalPool2D(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.keepdims = bool(cfg.get("keepdims", False))
+
+
+class GlobalAvgPool2D(_GlobalPool2D):
+    def forward(self, x):
+        return x.mean(dim=(2, 3), keepdim=self.keepdims)
+
+
+class GlobalMaxPool2D(_GlobalPool2D):
+    def forward(self, x):
+        return x.amax(dim=(2, 3), keepdim=self.keepdims)
 
 
 class Flatten(nn.Module):
     def forward(self, x):
         # NCHW activations, Keras (NHWC) element order
-        if x.dim() == 4:
-            x = x.permute(0, 2, 3, 1)
-        return x.reshape(x.shape[0], -1)
+        return to_keras(x).reshape(x.shape[0], -1)
 
 
-class Dense(nn.Module):
-    """:param weight: (out, in) tensor (the Keras kernel transposed)."""
-
-    def __init__(self, cfg, weight, bias=None):
+class Reshape(nn.Module):
+    def __init__(self, cfg):
         super().__init__()
-        self.act = _activation(cfg.get("activation"))
-        self.register_buffer("weight", weight)
-        self.register_buffer("bias", bias)
+        self.target = tuple(int(e) for e in cfg["target_shape"])
 
     def forward(self, x):
-        return self.act(F.linear(x, self.weight, self.bias))
+        return from_keras(to_keras(x).reshape((x.shape[0],) + self.target))
+
+
+class Permute(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.dims = (0,) + tuple(int(e) for e in cfg["dims"])
+
+    def forward(self, x):
+        return from_keras(to_keras(x).permute(self.dims))
+
+
+class ZeroPadding2D(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        p = cfg.get("padding", 1)
+        (t, b), (l, r) = ((p, p), (p, p)) if isinstance(p, int) else (
+            _pair(e) for e in p)
+        self.pads = (l, r, t, b)
+
+    def forward(self, x):
+        return F.pad(x, self.pads)
+
+
+class Activation(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.act = _activation(cfg.get("activation"))
+
+    def forward(self, x):
+        return self.act(x)
+
+
+class ReLU(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        # `is not None`: max_value=0.0 is a valid (constant-zero) clamp
+        self.max_value = cfg.get("max_value")
+        self.slope = float(cfg.get("negative_slope", 0.0) or 0.0)
+        self.threshold = float(cfg.get("threshold", 0.0) or 0.0)
+
+    def forward(self, x):
+        if self.max_value is not None:
+            x = torch.clamp(x, max=float(self.max_value))
+        return torch.where(x >= self.threshold, x,
+                           self.slope * (x - self.threshold))
+
+
+class LeakyReLU(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.alpha = float(cfg.get("alpha", cfg.get("negative_slope", 0.3)))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha * x)
+
+
+class Softmax(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.axis = int(cfg.get("axis", -1))
+
+    def forward(self, x):
+        return _softmax(x, self.axis)
+
+
+class Identity(nn.Module):
+    def __init__(self, cfg=None):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Add(nn.Module):
+    def __init__(self, cfg=None):
+        super().__init__()
+
+    def forward(self, *xs):
+        out = xs[0]
+        for e in xs[1:]:
+            out = out + e
+        return out
+
+
+class Multiply(Add):
+    def forward(self, *xs):
+        out = xs[0]
+        for e in xs[1:]:
+            out = out * e
+        return out
+
+
+class Concatenate(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.axis = int(cfg.get("axis", -1))
+
+    def forward(self, *xs):
+        return torch.cat(xs, dim=keras_dim(self.axis, xs[0].dim()))
+
+
+# layers with a conv or matmul: Keras class -> module(cfg, weight, bias, tier)
+WEIGHTED = {"Conv2D": Conv2D, "DepthwiseConv2D": DepthwiseConv2D,
+            "Conv1D": Conv1D, "Dense": Dense}
+
+# single-input layers without weights, and the merges: cfg -> module
+PLAIN = {
+    "MaxPooling2D": MaxPool2D,
+    "AveragePooling2D": AvgPool2D,
+    "GlobalAveragePooling2D": GlobalAvgPool2D,
+    "GlobalMaxPooling2D": GlobalMaxPool2D,
+    "Flatten": lambda cfg: Flatten(),
+    "Reshape": Reshape,
+    "Permute": Permute,
+    "ZeroPadding2D": ZeroPadding2D,
+    "Activation": Activation,
+    "ReLU": ReLU,
+    "LeakyReLU": LeakyReLU,
+    "Softmax": Softmax,
+    "Dropout": Identity,
+    "SpatialDropout1D": Identity,
+    "SpatialDropout2D": Identity,
+    "GaussianNoise": Identity,
+    "GaussianDropout": Identity,
+    "ActivityRegularization": Identity,
+    "InputLayer": Identity,
+}
+MERGES = {"Add": Add, "Concatenate": Concatenate, "Multiply": Multiply}
+SUPPORTED = frozenset(WEIGHTED) | {"BatchNormalization"} | frozenset(PLAIN) \
+    | frozenset(MERGES)

@@ -1,71 +1,51 @@
-"""Native checkpoints and the patch-CNN module built from them.
+"""The module built from an imported Keras spec.
 
-Counterpart of the native half of ``inaspeechsegmenter_tpu/models/
-keras_h5.py``: the checkpoint format (a JSON spec plus a flat npz of the
-Keras-layout weight arrays, ``save_native`` / ``load_native``) is the JAX
-package's, so the two packages read each other's files.  ``PatchCNN`` is
-the PyTorch counterpart of ``build_forward``: a sequential chain of the
-layers in ``layers.py``.  Keras hdf5 import (h5py) is not part of this
-slice.
+``ImportedModel`` is the PyTorch counterpart of the JAX package's
+``build_forward`` / ``ImportedModel`` (``inaspeechsegmenter_tpu/models/
+keras_h5.py``): an ``nn.Module`` that walks the spec's graph (inputs,
+outputs, inbound lists, merges) over the layers of ``layers.py``.  A
+sequential chain is the graph whose every layer reads the one before, so
+the patch CNNs, released or synthetic, take the same walk: rank-4 values
+stay channels-first for cuDNN from the input to Flatten, and each value
+is freed after the last layer that reads it.
+
+Weights come in the Keras layout (``read_h5``, ``load_native``, the JAX
+package's arrays); ``params_from_jax`` turns them into this module's
+tensors.  The native checkpoint helpers live in ``keras_h5.py`` and are
+re-exported here.
 """
 
 from __future__ import annotations
-
-import json
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from . import layers as L
+from .keras_h5 import KerasImportError, load_native, read_h5, save_native
 
-SUPPORTED = ("Conv2D", "BatchNormalization", "MaxPooling2D", "Flatten",
-             "Dense")
-
-
-def save_native(path, spec, params):
-    """Native checkpoint: spec as JSON + flat npz of weight arrays."""
-    flat = {}
-    for lname, arrays in params.items():
-        for i, a in enumerate(arrays):
-            flat[f"{lname}::{i}"] = np.asarray(a)
-    np.savez(path, __spec__=np.frombuffer(
-        json.dumps(spec).encode(), dtype=np.uint8), **flat)
+__all__ = ["ImportedModel", "UnsupportedLayerError", "params_from_jax",
+           "save_native", "load_native"]
 
 
-def load_native(path):
-    """-> (spec dict, {layer name: [numpy arrays]}) in Keras layout."""
-    with np.load(path, allow_pickle=False) as z:
-        spec = json.loads(bytes(z["__spec__"].tobytes()).decode())
-        params = {}
-        for key in z.files:
-            if key == "__spec__":
-                continue
-            lname, idx = key.rsplit("::", 1)
-            params.setdefault(lname, []).append((int(idx), z[key]))
-    params = {k: [a for _, a in sorted(v)] for k, v in params.items()}
-    return spec, params
+class UnsupportedLayerError(KerasImportError, NotImplementedError):
+    """A layer class outside the JAX package's vocabulary."""
 
 
 def _check_supported(spec):
-    prev = None
     for e in spec["layers"]:
-        if e["class_name"] not in SUPPORTED:
-            raise NotImplementedError(
-                f"unsupported layer type {e['class_name']} "
-                f"(the port builds {', '.join(SUPPORTED)})")
-        inbound = e.get("inbound") or []
-        if inbound and inbound != [prev]:
-            raise NotImplementedError(
-                f"layer {e['name']}: only sequential models are supported")
-        prev = e["name"]
+        if e["class_name"] not in L.SUPPORTED:
+            raise UnsupportedLayerError(
+                f"unsupported layer type {e['class_name']}")
 
 
 def params_from_jax(spec, params):
     """The JAX package's (Keras-layout) arrays -> this module's tensors.
 
-    Conv kernels go HWIO -> OIHW; Dense kernels (in, out) are transposed to
-    (out, in) for ``F.linear``, rows kept in the NHWC flatten order that
+    Conv2D kernels go HWIO -> OIHW, DepthwiseConv2D (kh, kw, cin, m) ->
+    the grouped (cin * m, 1, kh, kw), Conv1D (kw, cin, cout) -> (cout, cin,
+    kw); Dense kernels (in, out) are transposed to (out, in) for
+    ``F.linear``, rows kept in the NHWC flatten order that
     ``layers.Flatten`` reproduces.  BatchNormalization gets an explicit
     ``[gamma, beta, mean, var]`` with None for a disabled scale/center.
     """
@@ -78,13 +58,17 @@ def params_from_jax(spec, params):
     for e in spec["layers"]:
         name, cname, cfg = e["name"], e["class_name"], e["config"]
         w = list(params.get(name, []))
-        use_bias = cfg.get("use_bias", True)
+        bias = t(w[1]) if cfg.get("use_bias", True) and len(w) > 1 else None
         if cname == "Conv2D":
-            out[name] = [t(w[0]).permute(3, 2, 0, 1).contiguous(),
-                         t(w[1]) if use_bias else None]
+            out[name] = [t(w[0]).permute(3, 2, 0, 1).contiguous(), bias]
+        elif cname == "DepthwiseConv2D":
+            kh, kw, cin, m = w[0].shape
+            out[name] = [t(w[0]).reshape(kh, kw, cin * m).permute(2, 0, 1)
+                         [:, None].contiguous(), bias]
+        elif cname == "Conv1D":
+            out[name] = [t(w[0]).permute(2, 1, 0).contiguous(), bias]
         elif cname == "Dense":
-            out[name] = [t(w[0]).T.contiguous(),
-                         t(w[1]) if use_bias else None]
+            out[name] = [t(w[0]).T.contiguous(), bias]
         elif cname == "BatchNormalization":
             gamma = t(w.pop(0)) if cfg.get("scale", True) else None
             beta = t(w.pop(0)) if cfg.get("center", True) else None
@@ -94,43 +78,99 @@ def params_from_jax(spec, params):
     return out
 
 
-class PatchCNN(nn.Module):
-    """Sequential patch CNN: (B, H, W, C) NHWC float32 -> (B, n_out).
+class ImportedModel(nn.Module):
+    """A Keras model imported to PyTorch: ``spec``, Keras-layout
+    ``params`` and the module that runs them.
 
-    The input layout is the JAX forward's, so both take the same patches;
-    inside, activations are NCHW for cuDNN.
-
-    :param tensors: ``params_from_jax(spec, params)``.
+    Takes and returns Keras-layout tensors, (B, H, W, C) for images, as
+    the JAX forward does.  The forward runs at the precision tier that
+    ``ISS_CNN_PRECISION`` names at construction (``layers.cnn_precision``),
+    inside ``layers.precision_scope``: the TF32 flags are set for the
+    forward and restored after it, never changed process-wide.
     """
 
-    def __init__(self, spec, tensors):
+    def __init__(self, spec, params):
         super().__init__()
         _check_supported(spec)
         self.spec = spec
-        mods = []
+        self.params = params
+        self.precision = L.cnn_precision()
+        tensors = params_from_jax(spec, params)
+        self.inputs = list(spec.get("inputs") or [])
+        prev = self.inputs[0] if self.inputs else "<input>"
+        known = set(self.inputs) | {prev}
+        # steps (name, layer index or None for an alias, merge?, sources)
+        plan, mods = [], []
         for e in spec["layers"]:
-            cname, cfg = e["class_name"], e["config"]
-            p = tensors.get(e["name"], [])
-            if cname == "Conv2D":
-                mods.append(L.Conv2D(cfg, *p))
-            elif cname == "BatchNormalization":
-                mods.append(L.BatchNorm(cfg, *p))
-            elif cname == "MaxPooling2D":
-                mods.append(L.MaxPool2D(cfg))
-            elif cname == "Flatten":
-                mods.append(L.Flatten())
-            else:
-                mods.append(L.Dense(cfg, *p))
+            name, cname, cfg = e["name"], e["class_name"], e["config"]
+            if cname == "InputLayer":
+                if name not in known:          # an alias of the value before
+                    plan.append((name, None, False, [prev]))
+                    known.add(name)
+                prev = name
+                continue
+            srcs = list(e.get("inbound") or []) or [prev]
+            missing = [s for s in srcs if s not in known]
+            if missing:
+                raise KerasImportError(
+                    f"layer {name!r} reads unknown layers {missing}")
+            plan.append((name, len(mods), cname in L.MERGES, srcs))
+            mods.append(_build_layer(cname, cfg, tensors[name],
+                                     self.precision))
+            known.add(name)
+            prev = name
+        self.outputs = list(spec.get("outputs") or [prev])
         self.layers = nn.ModuleList(mods)
+        self._plan = plan
+        # free each value after the last step that reads it
+        last = {}
+        for i, (_, _, _, srcs) in enumerate(plan):
+            for s in srcs:
+                last[s] = i
+        self._free = [[s for s, j in last.items() if j == i
+                       and s not in self.outputs] for i in range(len(plan))]
+
+    @classmethod
+    def from_h5(cls, path):
+        return cls(*read_h5(path))
 
     @classmethod
     def from_native(cls, path):
-        spec, params = load_native(path)
-        return cls(spec, params_from_jax(spec, params))
+        return cls(*load_native(path))
+
+    def save_native(self, path):
+        save_native(path, self.spec, self.params)
+
+    @property
+    def output_dim(self):
+        """Best-effort final Dense units (softmax class count)."""
+        for e in reversed(self.spec["layers"]):
+            if e["class_name"] == "Dense":
+                return e["config"]["units"]
+        return None
 
     def forward(self, x):
-        if x.dim() == 4:
-            x = x.permute(0, 3, 1, 2)
-        for layer in self.layers:
-            x = layer(x)
-        return x
+        xs = list(x) if isinstance(x, (list, tuple)) else [x]
+        values = dict(zip(self.inputs or ["<input>"], map(L.from_keras, xs)))
+        with L.precision_scope(self.precision):
+            for i, (name, index, merge, srcs) in enumerate(self._plan):
+                ins = [values[s] for s in srcs]
+                if index is None:
+                    values[name] = ins[0]
+                else:
+                    layer = self.layers[index]
+                    values[name] = layer(*ins) if merge else layer(ins[0])
+                for s in self._free[i]:
+                    del values[s]
+        outs = [L.to_keras(values[n]) for n in self.outputs]
+        return outs[0] if len(outs) == 1 else outs
+
+
+def _build_layer(cname, cfg, tensors, tier):
+    if cname in L.WEIGHTED:
+        return L.WEIGHTED[cname](cfg, *tensors, tier=tier)
+    if cname == "BatchNormalization":
+        return L.BatchNorm(cfg, *tensors)
+    if cname in L.MERGES:
+        return L.MERGES[cname](cfg)
+    return L.PLAIN[cname](cfg)

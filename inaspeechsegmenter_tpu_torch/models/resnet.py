@@ -15,13 +15,20 @@ loads in the JAX package (``params_from_torch_state``).  Inference only:
 BatchNorm always uses its running statistics (eps 1e-5).
 
 Convolutions and the projection go to cuDNN / cuBLAS, as XLA ran them in
-the JAX package.  The exact tier is float32 with TF32 off, which the
-VFS scorer sets on CUDA.
+the JAX package.  They run at the x-vector tier (``ISS_XVEC_PRECISION``,
+read when the net is built; an empty value means the default), the
+JAX package's ladder with the CNN ladder's meanings (``layers.py``):
+``highest`` (float32 with TF32 off, the exact tier and the default),
+``high`` (TF32 tensor cores), ``fast`` / ``bf16`` / ``default`` (bf16
+operands, float32 accumulation and outputs, from bf16 weight copies made
+when weights load).  The forward sets the TF32 flags for itself and
+restores them after.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import pickle
 
 import numpy as np
@@ -29,8 +36,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import precision_scope, resolve_precision, tiered_product
+
 STAGE_MULT = (1, 2, 4, 8)
 STAGE_STRIDE = (1, 2, 2, 2)
+XVEC_TIERS = {"highest": "highest", "high": "high", "fast": "bf16",
+              "bf16": "bf16", "default": "bf16"}
+
+
+def xvec_precision():
+    """The tier ``ISS_XVEC_PRECISION`` asks for (``highest`` if unset)."""
+    return resolve_precision(os.environ.get("ISS_XVEC_PRECISION")
+                             or "highest", XVEC_TIERS, "ISS_XVEC_PRECISION")
 
 
 def pooled_freq(feat_dim):
@@ -91,7 +108,9 @@ def stats_pool(h, valid=None):
 
 
 def _conv(x, conv):
-    return F.conv2d(x, conv.weight, None, conv.stride, conv.padding)
+    return tiered_product(
+        lambda v, w, b: F.conv2d(v, w, b, conv.stride, conv.padding), x,
+        conv.weight, None, conv.weight_bf16)
 
 
 class Bottleneck(nn.Module):
@@ -180,6 +199,20 @@ class ResNetXVector(nn.Module):
         self.embedding = nn.Linear(in_planes * 2 * pooled_freq(feat_dim),
                                    embed_dim)
         self.eval()
+        self.set_precision(xvec_precision())
+
+    def set_precision(self, tier):
+        """Run at ``tier`` (a key of ``XVEC_TIERS``): for bf16, bf16 copies
+        of the conv and projection weights, made from the current weights
+        (the loaders below refresh them)."""
+        self.precision = resolve_precision(tier, XVEC_TIERS, "precision")
+        lowp = self.precision == "bf16"
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                m.register_buffer(
+                    "weight_bf16", m.weight.detach().to(torch.bfloat16)
+                    if lowp else None, persistent=False)
+        return self
 
     # -- parameters ---------------------------------------------------------
     def init_params(self, seed=0):
@@ -240,7 +273,7 @@ class ResNetXVector(nn.Module):
         """Copy a JAX-package parameter pytree into this module (in place,
         keeping its device); returns self."""
         self.load_state_dict(params_from_jax(params, self), strict=False)
-        return self
+        return self.set_precision(self.precision)
 
     # -- forward ------------------------------------------------------------
     def forward(self, x, n_valid=None):
@@ -254,13 +287,16 @@ class ResNetXVector(nn.Module):
         """
         valid = None if n_valid is None else torch.as_tensor(
             n_valid, device=x.device).to(torch.int64)
-        h = x[:, None]                              # NCHW, H=freq, W=time
-        h = F.relu(_bn(_conv(_tmask(h, valid), self.conv1), self.bn1))
-        for si, stride in enumerate(STAGE_STRIDE):
-            for bi, blk in enumerate(getattr(self, f"layer{si + 1}")):
-                h = blk(h, valid)
-                valid = _next_valid(valid, stride if bi == 0 else 1)
-        return self.embedding(stats_pool(h, valid))
+        with precision_scope(self.precision):
+            h = x[:, None]                          # NCHW, H=freq, W=time
+            h = F.relu(_bn(_conv(_tmask(h, valid), self.conv1), self.bn1))
+            for si, stride in enumerate(STAGE_STRIDE):
+                for bi, blk in enumerate(getattr(self, f"layer{si + 1}")):
+                    h = blk(h, valid)
+                    valid = _next_valid(valid, stride if bi == 0 else 1)
+            emb = self.embedding
+            return tiered_product(F.linear, stats_pool(h, valid), emb.weight,
+                                  emb.bias, emb.weight_bf16, -1)
 
     # -- weight import ------------------------------------------------------
     def load_torch_checkpoint(self, path):
@@ -289,7 +325,7 @@ class ResNetXVector(nn.Module):
             raise ValueError(f"{path}: checkpoint does not match the "
                              f"architecture (missing {missing[:5]}, "
                              f"unexpected {list(unexpected)[:5]})")
-        return self
+        return self.set_precision(self.precision)
 
 
 def params_from_jax(params, net):

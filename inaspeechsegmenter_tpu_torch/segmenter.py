@@ -9,6 +9,9 @@ plus an explicit ``device``.  The default device is ``cuda``; a host with
 no CUDA device raises rather than running on the CPU.  Tests pass
 ``device="cpu"``, which runs every kernel's plain PyTorch version.
 
+Media decode goes through ffmpeg by default (``audio/io.py``); the CNNs
+load by their registry names from a released ``.hdf5`` or its converted
+npz (``models/registry.py``) and run at the ``ISS_CNN_PRECISION`` tier.
 Features come from the fused CUDA frontend (``dsp/fe_kernel.py``); the
 decodes from the CUDA Viterbi (``decode/viterbi.py``).
 """
@@ -38,9 +41,11 @@ class DnnSegmenter:
     (segmenter.py:111-125).
     """
 
-    def __init__(self, batch_size=32, device="cuda", model_dir=None):
+    def __init__(self, batch_size=32, device="cuda", model_dir=None,
+                 allow_download=True):
         device = resolve_device(device)
-        self.model = load_patch_model(self.model_fname, model_dir).to(device)
+        self.model = load_patch_model(self.model_fname, model_dir,
+                                      allow_download).to(device)
         self.model.eval()
         self.batch_size = batch_size
 
@@ -76,22 +81,21 @@ class Gender(DnnSegmenter):
 
 
 class Segmenter:
-    def __init__(self, vad_engine="smn", detect_gender=True, ffmpeg=None,
+    def __init__(self, vad_engine="smn", detect_gender=True, ffmpeg="ffmpeg",
                  batch_size=32, energy_ratio=0.03, device="cuda",
-                 model_dir=None):
+                 model_dir=None, allow_download=True):
         """Load models and build the pipeline on ``device``.
 
         Same parameters as the reference ctor (segmenter.py:208-247), plus
-        ``device`` (explicit; ``cuda`` needs a CUDA device) and
-        ``model_dir`` (else ``$ISS_TPU_MODEL_DIR``).  Only ``ffmpeg=None``
-        (16 kHz WAV input) is ported, so it is the default.  On CUDA, TF32 is
-        turned off process-wide for matmuls and cuDNN convolutions: the
-        CNNs run in exact float32, the JAX CPU tier.
+        ``device`` (explicit; ``cuda`` needs a CUDA device), ``model_dir``
+        (the first model directory searched) and ``allow_download`` (the
+        JAX package's).  ``ffmpeg=None`` accepts 16 kHz WAV input only.
+        The process's TF32 flags are left alone: each CNN forward sets its
+        own tier's flags under a lock and restores them
+        (``models.layers.precision_scope``), also when the prefetch
+        producer threads of ``batch_process`` run it.
         """
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.ffmpeg = check_ffmpeg(ffmpeg)
         self.energy_ratio = energy_ratio
         self.batch_size = batch_size
@@ -100,14 +104,15 @@ class Segmenter:
             raise ValueError(f"vad_engine must be 'sm' or 'smn', got "
                              f"{vad_engine!r}")
         vad_cls = SpeechMusic if vad_engine == "sm" else SpeechMusicNoise
-        self.vad = vad_cls(batch_size, self.device, model_dir)
+        self.vad = vad_cls(batch_size, self.device, model_dir, allow_download)
 
         if detect_gender not in (True, False):
             raise ValueError(f"detect_gender must be a bool, got "
                              f"{detect_gender!r}")
         self.detect_gender = detect_gender
         if detect_gender:
-            self.gender = Gender(batch_size, self.device, model_dir)
+            self.gender = Gender(batch_size, self.device, model_dir,
+                                 allow_download)
 
         self.frontend = KernelSidekitFrontend(self.device)
         self.pipeline = FusedPipeline(
@@ -122,8 +127,8 @@ class Segmenter:
     # ------------------------------------------------------------------
     def _media2feats(self, medianame):
         """Decode + features -> (mspec, loge, t, difflen) on the device."""
-        return self._sig2feats(media2sig16kmono(medianame, dtype="auto"),
-                               medianame)
+        return self._sig2feats(media2sig16kmono(
+            medianame, ffmpeg=self.ffmpeg, dtype="auto"), medianame)
 
     def _sig2feats(self, sig, medianame="<signal>"):
         mspec, loge, t = self.frontend.mspec_loge(sig)
@@ -159,7 +164,8 @@ class Segmenter:
         """Segment a media file -> [(label, start_s, stop_s)] tiling the
         analyzed window (reference segmenter.py:279-294)."""
         s0 = 0 if start_sec is None else start_sec
-        sig = media2sig16kmono(medianame, start_sec, stop_sec, "auto")
+        sig = media2sig16kmono(medianame, start_sec, stop_sec, self.ffmpeg,
+                               "auto")
         return self.segment_signal(sig, s0, medianame)
 
     def segment_signal(self, sig, start_sec=0, medianame="<signal>"):

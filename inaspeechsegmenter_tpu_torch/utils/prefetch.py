@@ -13,7 +13,9 @@ Producers launch CUDA kernels from their own threads, on the default
 stream like the consumer: what overlaps is host work (the WAV read, the
 VBx dither and mirror pad), not device work.  ``torch.no_grad()`` is
 thread-local, so every model forward that a producer reaches carries its
-own.
+own; the TF32 flags are process-wide, so every cuBLAS or cuDNN call runs
+in a ``models.layers.precision_scope``, which holds a lock while it sets
+them.
 """
 
 from __future__ import annotations

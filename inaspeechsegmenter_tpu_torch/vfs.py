@@ -10,16 +10,19 @@ frames, x-vectors scaled x10, NaN windows dropped), plus an explicit
 
 The VAD is the port's ``Segmenter("smn", detect_gender=False)``, so a VFS
 run launches the SIDEKIT feature and Viterbi kernels.  VBx features,
-the ResNet101 and the MLP run as plain PyTorch (cuDNN / cuBLAS in float32
-with TF32 off on CUDA); the JAX package has no Pallas kernel on this path.
-Full windows are gathered on the device from the feature tensor and run
-through the ResNet in sub-batches of ``ISS_XVEC_BATCH`` (default 256); the
-ragged tail window runs through the masked forward.
+the ResNet101 and the MLP run as plain PyTorch (cuDNN / cuBLAS, the
+ResNet at the ``ISS_XVEC_PRECISION`` tier and the MLP at the
+``ISS_CNN_PRECISION`` tier, both float32 with TF32 off by default); the
+JAX package has no Pallas kernel on this path.  Media decode through
+ffmpeg, and the MLP's registry resolution (released ``.hdf5`` or its
+converted npz), are the Segmenter's.  Full windows are gathered on the
+device from the feature tensor and run through the ResNet in sub-batches
+of ``ISS_XVEC_BATCH`` (default 256); the ragged tail window runs through
+the masked forward, or unpadded with ``ISS_XVEC_TAIL=exact``.
 
 ``batch_score`` prefetches the next files' VAD and VBx features on
 producer threads; ``online.OnlineVFS`` scores a growing recording.  Not
-ported: the overlapped speculative scorer, ``mesh=`` and the
-``ISS_XVEC_PRECISION`` ladder.
+ported: the overlapped speculative scorer and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -140,6 +143,11 @@ class TorchResnetExtractor:
         return torch.cat(outs).cpu().numpy()
 
     @torch.no_grad()
+    def get_embedding(self, fea):
+        """Embedding of one (T, 64) window at its own length."""
+        return self.net(fea.T[None])[0].cpu().numpy()
+
+    @torch.no_grad()
     def get_embedding_masked(self, fea, start, length):
         """Tail-window embedding: the window zero-padded (by a clamped
         gather) to WINLEN and run through the masked forward at its true
@@ -189,8 +197,11 @@ class TorchResnetExtractor:
         if n - start - STEP >= 10:
             tail_seg = (round((start + STEP) / 100.0, 3), round(duration, 3))
             if not speech_only or midpoint_in_speech(tail_seg):
-                emb = self.get_embedding_masked(fea, start + STEP,
-                                                n - (start + STEP))
+                if os.environ.get("ISS_XVEC_TAIL", "masked") == "exact":
+                    emb = self.get_embedding(fea[start + STEP:])
+                else:
+                    emb = self.get_embedding_masked(fea, start + STEP,
+                                                    n - (start + STEP))
                 key = f"{basename}_{start + STEP:08}-{n:08}"
                 if np.isnan(emb).any():
                     logger.warning(
@@ -204,24 +215,27 @@ class VoiceFemininityScoring:
     """Voice femininity scoring with the reference constructor contract
     (vbx_segmenter.py:97-127), on ``device``."""
 
-    def __init__(self, gd_model_criteria="bgc", ffmpeg=None, device="cuda",
-                 model_dir=None, xvector_params=None, xvector_net=None):
-        """:param ffmpeg: only ``None`` (16 kHz WAV input) is ported.
-        :param model_dir: model directory (else ``$ISS_TPU_MODEL_DIR``).
+    def __init__(self, gd_model_criteria="bgc", ffmpeg="ffmpeg",
+                 device="cuda", model_dir=None, xvector_params=None,
+                 xvector_net=None, allow_download=True):
+        """:param ffmpeg: the ffmpeg binary decoding any media, or ``None``
+            (16 kHz WAV input only).
+        :param model_dir: the first model directory searched (see
+            ``models.registry``).
         :param xvector_params: a JAX-package ResNet parameter pytree.
         :param xvector_net: a ``ResNetXVector`` module (default ResNet101).
+        :param allow_download: fetch a missing MLP from its release URL.
 
-        On CUDA, TF32 is turned off process-wide for matmuls and cuDNN
-        convolutions: the ResNet runs in exact float32.
+        The process's TF32 flags are left alone: the ResNet, the MLP, the
+        VAD CNN and the VBx features each run in their own tier's scope,
+        which holds a lock, also on ``batch_score``'s producer threads
+        (``models.layers.precision_scope``).
         """
         if gd_model_criteria not in ("bgc", "vfp"):
             raise ValueError("Gender detection model criteria must be 'bgc' "
                              f"or 'vfp', got {gd_model_criteria!r}")
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        check_ffmpeg(ffmpeg)
+        self.ffmpeg = check_ffmpeg(ffmpeg)
         self.xvector_model = TorchResnetExtractor(
             xvector_params, xvector_net, self.device, model_dir)
         if gd_model_criteria == "bgc":
@@ -231,10 +245,11 @@ class VoiceFemininityScoring:
             gd_model = "interspeech2023_cvfr.hdf5"
             self.vad_thresh = 0.62
         self.gender_detection_mlp_model = load_patch_model(
-            gd_model, model_dir).to(self.device).eval()
+            gd_model, model_dir, allow_download).to(self.device).eval()
         self.vad = Segmenter(vad_engine="smn", detect_gender=False,
                              ffmpeg=ffmpeg, device=self.device,
-                             model_dir=model_dir)
+                             model_dir=model_dir,
+                             allow_download=allow_download)
         self.features = VbxFrontend(self.device)
 
     def apply_vad(self, xvectors, timeline: SpeechTimeline):
@@ -255,11 +270,11 @@ class VoiceFemininityScoring:
         """Decode + VAD + VBx features (everything before the ResNet):
         -> (basename, fea | None, timeline, duration, speech_duration)."""
         basename = os.path.splitext(os.path.basename(fpath))[0]
-        sig = media2sig16kmono(fpath, dtype="auto")
+        sig = media2sig16kmono(fpath, ffmpeg=self.ffmpeg, dtype="auto")
         # a non-PCM16 source is decoded once more in float64 for the
         # features, as the reference does (vbx_segmenter.py:160-164)
         signal = None if sig.dtype == np.int16 else media2sig16kmono(
-            fpath, dtype="float64")
+            fpath, ffmpeg=self.ffmpeg, dtype="float64")
         if not hasattr(self.vad, "segment_signal"):
             # reference duck-type contract: `vad` is CALLED with the path
             # (vbx_segmenter.py:164), so a plain callable can replace it

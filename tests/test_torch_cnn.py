@@ -2,7 +2,7 @@
 
 The port's numpy weight builder must give arrays identical to the JAX
 package's for the same seed and size; the forward pass built through
-``params_from_jax`` must match the JAX ``ImportedModel`` within atol 1e-5
+``ImportedModel`` must match the JAX ``ImportedModel`` within atol 1e-5
 (float32 convolutions summed in another order).
 """
 
@@ -63,7 +63,7 @@ def test_forward_matches_jax(nmel, nout, seed):
                             rng.uniform(0.5, 2.0, c).astype(np.float32)]
     x = rng.standard_normal((16, 68, nmel, 1)).astype(np.float32)
     want = np.asarray(ImportedModel(spec, params)(x))
-    model = native.PatchCNN(spec, native.params_from_jax(spec, params))
+    model = native.ImportedModel(spec, params)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (16, nout)
@@ -79,7 +79,7 @@ def test_gender_mlp_matches_jax(seed):
     x = np.random.default_rng(seed).standard_normal(
         (64, 256)).astype(np.float32)
     want = np.asarray(ImportedModel(spec_j, params_j)(x))
-    model = native.PatchCNN(spec, native.params_from_jax(spec, params))
+    model = native.ImportedModel(spec, params)
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (64, 1)
@@ -97,7 +97,7 @@ def test_flatten_keeps_keras_nhwc_order():
     h, w, c = 2, 3, 4
     kernel = np.zeros((h * w * c, 1), np.float32)
     kernel[(1 * w + 2) * c + 3] = 1.0       # picks element (h=1, w=2, c=3)
-    model = native.PatchCNN(spec, native.params_from_jax(spec, {"d": [kernel]}))
+    model = native.ImportedModel(spec, {"d": [kernel]})
     x = np.arange(h * w * c, dtype=np.float32).reshape(1, h, w, c)
     assert float(model(torch.from_numpy(x))[0, 0]) == x[0, 1, 2, 3]
 
@@ -109,14 +109,14 @@ def test_unknown_layer_class_raises():
     with pytest.raises(NotImplementedError, match="LSTM"):
         native.params_from_jax(spec, params)
     with pytest.raises(NotImplementedError, match="LSTM"):
-        native.PatchCNN(spec, {})
+        native.ImportedModel(spec, params)
 
 
 def test_unknown_activation_raises():
     spec, params = jsyn.build_patch_cnn(21, 3, 0, "small")
-    spec["layers"][0]["config"]["activation"] = "gelu"
-    with pytest.raises(NotImplementedError, match="gelu"):
-        native.PatchCNN(spec, native.params_from_jax(spec, params))
+    spec["layers"][0]["config"]["activation"] = "mish"
+    with pytest.raises(NotImplementedError, match="mish"):
+        native.ImportedModel(spec, params)
 
 
 def test_registry_reads_npz_and_raises_when_missing(tmp_path):
@@ -124,6 +124,6 @@ def test_registry_reads_npz_and_raises_when_missing(tmp_path):
     with pytest.warns(UserWarning, match="SYNTHETIC"):
         model = load_patch_model("keras_male_female_cnn.hdf5",
                                  model_dir=str(tmp_path))
-    assert isinstance(model, native.PatchCNN)
+    assert isinstance(model, native.ImportedModel)
     with pytest.raises(ModelNotFoundError):
         load_patch_model("keras_missing_cnn.hdf5", model_dir=str(tmp_path))

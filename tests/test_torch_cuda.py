@@ -16,6 +16,14 @@ PyTorch code (cuDNN / cuBLAS, TF32 off) against the CPU run: VBx features
 within ``dsp.vbx.device_atol(n_frames)``, tiny-ResNet embeddings within a relative L2
 error of 1e-4, and the end-to-end score equal.
 
+Real inputs: a Segmenter built from ``.hdf5`` files against the npz route
+(bit-equal weights, equal labels), and each CNN and x-vector precision
+tier against ``highest`` (CNN outputs within 2e-2, embeddings within a
+relative L2 error of 1e-2 for ``high`` and 5e-2 for ``bf16``, never
+bit-equal).  ``batch_score`` with the ResNet at ``high`` on the consumer
+thread: the producer threads' VAD and VBx features bit-equal to a serial
+run's, the process's TF32 flags as they were.
+
 Streaming and online: a group launch of the features kernel within the
 features tolerance of the plain version and bit-equal to the rows of a
 whole-signal launch; the Viterbi with the online suffix decode's
@@ -247,13 +255,13 @@ def test_vfs_cuda_matches_cpu(dev, tmp_path):
     sig = to_int16(voiced(20.0, seed=2, silences=[(4.0, 4.7), (13.2, 13.5)]))
     fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
     got = VoiceFemininityScoring(
-        "vfp", device=dev, model_dir=models,
+        "vfp", ffmpeg=None, device=dev, model_dir=models,
         xvector_net=ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256),
         xvector_params=params).score_signal(sig)
     assert fe_kernel.sidekit_features.launches == fe0 + 1
     assert tv.viterbi_scan.launches == vt0 + 2
     want = VoiceFemininityScoring(
-        "vfp", device="cpu", model_dir=models, xvector_net=net,
+        "vfp", ffmpeg=None, device="cpu", model_dir=models, xvector_net=net,
         xvector_params=params).score_signal(sig)
     assert got == want and got[2] > 0
 
@@ -394,3 +402,119 @@ def test_prefetched_batch_process_matches_one_by_one(cuda_seg, tmp_path,
     assert n_ok == 4 and [m[1] for m in lmsg] == [0, 0, 0, 0, 2]
     for wav, out in zip(wavs[:-1], outs[:-1]):
         assert open(out).read() == seg2csv(cuda_seg(wav))
+
+
+# -- real inputs: hdf5 weights and the precision tiers on the card --------------
+
+def test_hdf5_route_matches_npz_route(dev, small_models, tmp_path):
+    """A Segmenter built from the ``.hdf5`` files of the small synthetic
+    set holds bit-equal weights and gives the npz route's labels."""
+    from inaspeechsegmenter_tpu_torch import Segmenter
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+    from torch_parity_helpers import write_spec_h5
+
+    for stem, args in (("keras_speech_music_noise_cnn", (21, 3, 1)),
+                       ("keras_male_female_cnn", (24, 2, 2))):
+        write_spec_h5(str(tmp_path / f"{stem}.hdf5"),
+                      *build_patch_cnn(*args, "small"))
+    got = Segmenter("smn", True, ffmpeg=None, device=dev,
+                    model_dir=str(tmp_path), allow_download=False)
+    want = Segmenter("smn", True, ffmpeg=None, device=dev,
+                     model_dir=small_models, allow_download=False)
+    assert got.vad.model.path.endswith(".hdf5")
+    for a, b in ((got.vad.model, want.vad.model),
+                 (got.gender.model, want.gender.model)):
+        for u, v in zip(a.state_dict().values(), b.state_dict().values(),
+                        strict=True):
+            assert torch.equal(u, v)
+    sig = to_int16(voiced(20.0, seed=2, silences=[(4.0, 4.7)]))
+    assert got.segment_signal(sig) == want.segment_signal(sig)
+
+
+@pytest.mark.parametrize("tier", ["high", "bf16"])
+def test_cnn_tier_against_highest(dev, tier, monkeypatch):
+    """Within 2e-2 of ``highest`` and not bit-equal to it; the TF32 flags
+    are restored after the forward."""
+    from inaspeechsegmenter_tpu_torch.models.native import ImportedModel
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+
+    spec, params = build_patch_cnn(21, 3, 1, "full")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (512, 68, 21, 1)).astype(np.float32)).to(dev)
+    models = {}
+    for t in ("highest", tier):
+        monkeypatch.setenv("ISS_CNN_PRECISION", t)
+        models[t] = ImportedModel(spec, params).to(dev)
+    with torch.no_grad():
+        want = models["highest"](x)
+        got = models[tier](x)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    err = float((got - want).abs().max())
+    assert 0 < err <= 2e-2
+
+
+@pytest.mark.parametrize("tier,bound", [("high", 1e-2), ("bf16", 5e-2)])
+def test_xvec_tier_against_highest(dev, tier, bound):
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+
+    net = ResNetXVector("bottleneck", (2, 2, 2, 2), 32, 64, 256)
+    params = net.init_params(seed=1)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (16, 64, 144)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        want = net.load_jax_params(params).to(dev)(x).cpu().numpy()
+        other = ResNetXVector("bottleneck", (2, 2, 2, 2), 32, 64, 256)
+        got = other.load_jax_params(params).set_precision(tier).to(dev)(x) \
+            .cpu().numpy()
+    rel = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+    assert 0 < rel.max() <= bound
+
+
+def test_batch_score_at_another_tier_keeps_vad_and_features_exact(
+        dev, small_models, tmp_path, monkeypatch):
+    """The consumer runs the ResNet at ``high`` (TF32) while the producer
+    threads run the VAD CNN and the VBx features at ``highest``: what the
+    producers prepared equals a serial run's bit for bit, the scores equal
+    one call per file, and the process's TF32 flags end as they began."""
+    from inaspeechsegmenter_tpu_torch import VoiceFemininityScoring
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+
+    monkeypatch.setenv("ISS_XVEC_PRECISION", "high")
+    monkeypatch.setenv("ISS_PREFETCH", "3")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    net = ResNetXVector("bottleneck", (2, 2, 2, 2), 32, 64, 256)
+    vfs = VoiceFemininityScoring("bgc", ffmpeg=None, device=dev,
+                                 model_dir=small_models, xvector_net=net,
+                                 xvector_params=net.init_params(seed=3),
+                                 allow_download=False)
+    assert vfs.xvector_model.net.precision == "high"
+    wavs = []
+    for i, seconds in enumerate((30.0, 45.0, 20.0, 60.0, 35.0, 25.0)):
+        wavs.append(str(tmp_path / f"v{i}.wav"))
+        write_wav(wavs[-1], to_int16(voiced(seconds, seed=40 + i,
+                                            silences=[(2.0, 2.6)])), 16000)
+    serial, prepared = vfs._prepare, {}
+
+    def recording(path):
+        prepared[path] = serial(path)
+        return prepared[path]
+
+    vfs._prepare = recording
+    outs = [str(tmp_path / "out" / f"v{i}.csv") for i in range(len(wavs))]
+    _, n_ok, _, _ = vfs.batch_score(wavs, outs)
+    assert n_ok == len(wavs)
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == (False, True)
+    for wav, out in zip(wavs, outs):
+        name, fea, timeline, duration, speech = serial(wav)
+        got = prepared[wav]
+        assert (got[0], got[3], got[4]) == (name, duration, speech)
+        assert got[2].intervals == timeline.intervals
+        assert torch.equal(got[1], fea)
+        want = vfs(wav)
+        assert open(out).read().splitlines()[1] == "%s\t%s\t%d" % (
+            "" if want[0] is None else repr(float(want[0])),
+            repr(float(want[1])), want[2])

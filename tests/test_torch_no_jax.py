@@ -16,7 +16,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "inaspeechsegmenter_tpu_torch")
 
 CODE = r"""
+import os
 import sys
+sys.modules["h5py"] = None               # importing h5py now raises
 import numpy as np
 import inaspeechsegmenter_tpu_torch as port
 from inaspeechsegmenter_tpu_torch.cli import segment
@@ -35,7 +37,8 @@ assert lseg[0][1] == 0.0 and abs(lseg[-1][2] - 2.98) < 1e-9, lseg
 from inaspeechsegmenter_tpu_torch.cli import vfs  # noqa: F401
 from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
 net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
-scorer = port.VoiceFemininityScoring("bgc", device="cpu", model_dir="models",
+scorer = port.VoiceFemininityScoring("bgc", ffmpeg=None, device="cpu",
+                                     model_dir="models",
                                      xvector_net=net,
                                      xvector_params=net.init_params(seed=0))
 score, dur, n = scorer("t.wav")
@@ -47,14 +50,29 @@ for pos in range(0, len(long), 16000 * 10):
     online.current()
 assert online.finalize() == seg.segment_signal(long)
 assert online.chunks_ready == 3, online.chunks_ready
+# a released-layout Keras .hdf5, read without h5py, then from its npz cache
+sys.path.insert(0, os.path.join(os.environ["PYTHONPATH"], "tests"))
+from torch_parity_helpers import write_spec_h5
+from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+os.makedirs("h5models")
+write_spec_h5("h5models/keras_speech_music_noise_cnn.hdf5",
+              *build_patch_cnn(21, 3, 1, "small"))
+vads = [port.Segmenter("smn", False, ffmpeg=None, device="cpu",
+                       model_dir=d, allow_download=False)
+        for d in ("h5models", "h5models", "models")]
+assert [v.vad.model.path.rsplit(".", 1)[1] for v in vads] == \
+    ["hdf5", "npz", "npz"]
+assert vads[0]("t.wav") == vads[1]("t.wav") == vads[2]("t.wav")
 bad = [m for m in ("jax", "jaxlib", "pandas", "h5py",
-                   "inaspeechsegmenter_tpu") if m in sys.modules]
+                   "inaspeechsegmenter_tpu") if sys.modules.get(m)]
 assert not bad, bad
 print("NO-JAX-OK")
 """
 
 
 def test_port_runs_without_jax_pandas_h5py(tmp_path):
+    """Segmentation, VFS, online segmentation and a Keras ``.hdf5`` model
+    load in a process where importing h5py fails."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", CODE], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)

@@ -125,8 +125,8 @@ def test_media_contract_without_ffmpeg(port_seg, synthetic_model_dir,
     write_wav(wav, np.zeros(16000, np.int16), 16000)
     with pytest.raises(NotImplementedError):
         port_seg(wav, start_sec=0.5)
-    with pytest.raises(NotImplementedError, match="ffmpeg"):
-        Segmenter("smn", True, ffmpeg="ffmpeg", device="cpu",
+    with pytest.raises(Exception, match="ffmpeg program not found"):
+        Segmenter("smn", True, ffmpeg="/nonexistent/ffmpeg", device="cpu",
                   model_dir=synthetic_model_dir)
 
 

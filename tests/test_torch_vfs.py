@@ -298,8 +298,9 @@ def test_cli_writes_csv(port_vfs, synthetic_model_dir, xparams, mix_wav,
     score, dur, n = port_vfs(mix_wav[0])
     assert (out / "mix20.csv").read_text().splitlines()[1] == (
         f"{score!r}\t{dur!r}\t{n}")
-    with pytest.raises(SystemExit):
-        cli.main(["-i", silence_wav, "-o", str(out), "-b", "ffmpeg"])
+    with pytest.raises(Exception, match="ffmpeg program not found"):
+        cli.main(["-i", silence_wav, "-o", str(out), "-b",
+                  "/nonexistent/ffmpeg", "--device", "cpu"])
 
 
 def test_xvector_weights_from_model_dir(tmp_path, xparams):

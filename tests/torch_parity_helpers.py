@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import re
+import struct
 
 import numpy as np
 
@@ -64,6 +65,214 @@ def voiced(seconds, seed, silences=()):
 
 def to_int16(sig):
     return np.clip(np.rint(sig * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def write_h5(path, datasets=(), attrs=()):
+    """Write an HDF5 file with numpy alone: superblock v0, symbol-table
+    groups, contiguous datasets, numeric and fixed-length string
+    attributes (the layout h5py writes with ``libver="earliest"``).
+
+    :param datasets: {"/group/name": array} (numeric, either byte order);
+        groups on the path are created.
+    :param attrs: {"/group": {name: value}}: ``bytes`` / ``str`` and
+        arrays of them are fixed-length strings, the rest numeric.
+    Test scaffolding: it writes the Keras files of the CPU tests and of the
+    chip smoke run, whose hosts may have no h5py.
+    """
+    def node(p):
+        g = root
+        for part in (q for q in p.split("/") if q):
+            g = g["members"].setdefault(part, {"attrs": {}, "members": {}})
+        return g
+
+    root = {"attrs": {}, "members": {}}
+    for p, arr in dict(datasets).items():
+        parent, _, leaf = p.rstrip("/").rpartition("/")
+        node(parent)["members"][leaf] = np.asarray(arr)
+    for p, a in dict(attrs).items():
+        node(p)["attrs"].update(a)
+    return _H5Writer().write(path, root)
+
+
+_UNDEF = b"\xff" * 8
+
+
+class _H5Writer:
+    """Little-endian, 8-byte offsets and lengths, everything 8-aligned."""
+
+    INTERNAL_K = 16
+
+    def write(self, path, root):
+        self.buf = bytearray(96)
+        self.leaf_k = max(4, -(-self._widest(root) // 2))
+        addr, btree, heap = self._group(root)
+        sb = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+              + struct.pack("<HHI", self.leaf_k, self.INTERNAL_K, 0)
+              + struct.pack("<Q", 0) + _UNDEF
+              + struct.pack("<Q", len(self.buf)) + _UNDEF
+              + struct.pack("<QQII", 0, addr, 1, 0)
+              + struct.pack("<QQ", btree, heap))
+        self.buf[:96] = sb
+        with open(path, "wb") as fh:
+            fh.write(self.buf)
+        return path
+
+    def _widest(self, g):
+        kids = [m for m in g["members"].values() if isinstance(m, dict)]
+        return max([len(g["members"])] + [self._widest(k) for k in kids])
+
+    def _alloc(self, data):
+        self.buf += bytes(-len(self.buf) % 8)
+        addr = len(self.buf)
+        self.buf += data
+        return addr
+
+    def _header(self, msgs):
+        body = b""
+        for mtype, data in msgs:
+            data += bytes(-len(data) % 8)
+            body += struct.pack("<HHB3x", mtype, len(data), 0) + data
+        return self._alloc(struct.pack("<BBHII4x", 1, 0, len(msgs), 1,
+                                       len(body)) + body)
+
+    def _group(self, g):
+        names = sorted(g["members"], key=str.encode)
+        entries = []
+        for name in names:
+            m = g["members"][name]
+            if isinstance(m, dict):
+                addr, btree, heap = self._group(m)
+                entries.append((addr, struct.pack("<IIQQ", 1, 0, btree, heap)))
+            else:
+                entries.append((self._dataset(m), bytes(24)))
+        heap_data, offsets = bytearray(8), []
+        for name in names:
+            offsets.append(len(heap_data))
+            raw = name.encode() + b"\0"
+            heap_data += raw + bytes(-len(raw) % 8)
+        # the data segment follows the 32-byte heap header; 1 ends the
+        # (empty) free list
+        self.buf += bytes(-len(self.buf) % 8)
+        heap = self._alloc(b"HEAP" + bytes(4) + struct.pack(
+            "<QQQ", len(heap_data), 1, len(self.buf) + 32) + heap_data)
+        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(names))
+        for off, (addr, cache) in zip(offsets, entries):
+            snod += struct.pack("<QQ", off, addr) + cache
+        snod += bytes(8 + 2 * self.leaf_k * 40 - len(snod))
+        snod_addr = self._alloc(snod) if names else None
+        tree = b"TREE" + struct.pack("<BBH", 0, 0, 1 if names else 0) \
+            + _UNDEF + _UNDEF + struct.pack("<Q", 0)
+        if names:
+            tree += struct.pack("<QQ", snod_addr, offsets[-1])
+        k = self.INTERNAL_K
+        tree += bytes(24 + (2 * k + 1) * 8 + 2 * k * 8 - len(tree))
+        btree = self._alloc(tree)
+        msgs = [(0x11, struct.pack("<QQ", btree, heap))]
+        msgs += [(0x0C, self._attribute(n, v)) for n, v in g["attrs"].items()]
+        return self._header(msgs), btree, heap
+
+    def _dataset(self, arr):
+        raw = arr.tobytes()
+        addr = self._alloc(raw) if raw else None
+        layout = struct.pack("<BB", 3, 1) + (
+            _UNDEF if addr is None else struct.pack("<Q", addr)) \
+            + struct.pack("<Q", len(raw))
+        return self._header([(0x01, _dataspace(arr.shape)),
+                             (0x03, _datatype(arr.dtype)), (0x08, layout)])
+
+    @staticmethod
+    def _attribute(name, value):
+        if isinstance(value, (bytes, str)):
+            value = np.bytes_(value.encode() if isinstance(value, str)
+                              else value)
+        arr = np.asarray(value)
+        if arr.dtype.kind in "OU":
+            arr = np.array([v.encode() if isinstance(v, str) else v
+                            for v in arr.ravel()]).reshape(arr.shape)
+        raw_name = name.encode() + b"\0"
+        dt, ds = _datatype(arr.dtype), _dataspace(arr.shape)
+
+        def pad(b):
+            return b + bytes(-len(b) % 8)
+        return (struct.pack("<BBHHH", 1, 0, len(raw_name), len(dt), len(ds))
+                + pad(raw_name) + pad(dt) + pad(ds) + arr.tobytes())
+
+
+def _dataspace(shape):
+    return struct.pack("<BBB5x", 1, len(shape), 0) + b"".join(
+        struct.pack("<Q", d) for d in shape)
+
+
+def _datatype(dtype):
+    big = dtype.byteorder == ">"
+    if dtype.kind == "S":
+        return struct.pack("<BBBBI", 0x13, 1, 0, 0, max(dtype.itemsize, 1))
+    if dtype.kind in "iu":
+        return struct.pack("<BBBBIHH", 0x10, int(big) | (8 if dtype.kind ==
+                                                         "i" else 0), 0, 0,
+                           dtype.itemsize, 0, 8 * dtype.itemsize)
+    if dtype.kind == "f":
+        exp_loc, exp_size, mant, bias = {
+            2: (10, 5, 10, 15), 4: (23, 8, 23, 127),
+            8: (52, 11, 52, 1023)}[dtype.itemsize]
+        return struct.pack("<BBBBIHHBBBBI", 0x11, int(big) | 0x20,
+                           8 * dtype.itemsize - 1, 0, dtype.itemsize, 0,
+                           8 * dtype.itemsize, exp_loc, exp_size, 0, mant,
+                           bias)
+    raise TypeError(f"write_h5: no HDF5 type for {dtype}")
+
+
+def keras_model_config(spec):
+    """A Keras 2 Sequential ``model_config`` for a sequential spec."""
+    return {"class_name": "Sequential", "config": {
+        "name": "sequential_1",
+        "layers": [{"class_name": e["class_name"], "config": e["config"]}
+                   for e in spec["layers"]]}}
+
+
+def write_keras2_h5(path, model_config, weights, keras_version="2.1.6"):
+    """Write a Keras hdf5 in the 2018 Keras 2 layout with ``write_h5``:
+    JSON ``model_config`` attr, fixed-width bytes ``layer_names`` /
+    ``weight_names`` attrs, datasets at the nested
+    ``model_weights/<layer>/<layer>/<weight>:0`` paths.
+
+    :param weights: {layer name: [(weight name, array)]} in Keras order.
+    """
+    import json
+
+    datasets = {}
+    attrs = {"/": {"model_config": json.dumps(model_config).encode(),
+                   "keras_version": keras_version.encode(),
+                   "backend": b"tensorflow"},
+             "/model_weights": {
+                 "layer_names": np.array([n.encode() for n in weights],
+                                         dtype="S64"),
+                 "keras_version": keras_version.encode(),
+                 "backend": b"tensorflow"}}
+    for lname, wlist in weights.items():
+        wnames = [f"{lname}/{wn}:0" for wn, _ in wlist]
+        attrs[f"/model_weights/{lname}"] = {"weight_names": np.array(
+            [n.encode() for n in wnames], dtype="S96")}
+        for (_, arr), full in zip(wlist, wnames):
+            datasets[f"/model_weights/{lname}/{full}"] = np.asarray(
+                arr, np.float32)
+    return write_h5(path, datasets, attrs)
+
+
+KERAS_WEIGHT_NAMES = {"Conv2D": ("kernel", "bias"), "Dense": ("kernel", "bias"),
+                      "BatchNormalization": ("gamma", "beta", "moving_mean",
+                                             "moving_variance")}
+
+
+def write_spec_h5(path, spec, params):
+    """A sequential spec and its Keras-layout params (the synthetic models)
+    as a Keras 2 hdf5 that ``read_h5`` turns back into equal arrays."""
+    weights = {}
+    for e in spec["layers"]:
+        arrays = params.get(e["name"], [])
+        names = KERAS_WEIGHT_NAMES.get(e["class_name"], ())
+        weights[e["name"]] = list(zip(names, arrays))
+    return write_keras2_h5(path, keras_model_config(spec), weights)
 
 
 def kernel_constant(source, name):
