@@ -84,12 +84,33 @@ Phases, each fatal on failure (non-zero exit, no final line):
    44.1 kHz stereo copy of the 60 s mix for ``Segmenter(...,
    ffmpeg="ffmpeg")``, whole and windowed by ``start_sec`` / ``stop_sec``:
    segments tile each window and both kernels are launched; an unknown
-   binary raises "ffmpeg program not found".
+   binary raises "ffmpeg program not found";
+6. the rest of the reference API: (a) the int16 VBx grid on the 10 min
+   mix (its features against the f32 path's within the f32 bound, the f32
+   path's host half against the grid's host work and its one-time dither
+   growth, the blocked features' device ms, the VFS tuple equal on both
+   paths, a ``VbxPcmStream`` fed in uneven pieces and the shared-PCM route
+   bit-equal to ``_features_i16``, the VFS stage split on the grid); (b)
+   the ResNet over all the 10 min mix's windows with the tail bucket
+   (windows/s against phase 3's speech-window rate, the padded tail
+   sub-batch's ms against the ragged one's and a full one's); (c)
+   ``OnlineVFS`` over the 10 min mix in 0.5 s blocks (poll median and max,
+   no PCM kept past 400 samples, ``finalize()`` equal to
+   ``score_signal``); (d) the general-K Viterbi through
+   ``viterbi_decoding`` (``consecutive=10`` on 3 states, K = 30, and K = 8
+   with forbidden and mandatory frames and resets, T = 180,000, states
+   equal to the plain run), then the kernel alone against its plain
+   version (ms, plain ms, bound); (e) ``DnnSegmenter.__call__`` of the smn
+   and gender stages on the 60 s mix, cuda against cpu (at most 0.1% of
+   frames differing; whether the lseg are equal is printed); (f) a 44.1
+   kHz PCM16 WAV with ``ffmpeg=None`` through the native resampler (built
+   with the host C++ compiler), the frames differing from the 16 kHz
+   labels printed.
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-5, launches per file for
-segmentation, VFS, the online segmenter and the ffmpeg decode,
-``bound_ms``: the larger of the
+summed over the main-path runs of phases 2-6, launches per file for
+segmentation, VFS, the online segmenter, the ffmpeg decode and each run
+of phase 6, ``bound_ms``: the larger of the
 bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
 card's name and power limit; the last line is the JSON result.  Every time
 is on the card that line names.  Imports nothing of JAX.
@@ -97,6 +118,7 @@ is on the card that line names.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -413,11 +435,42 @@ def warm_batch_walls(batch, wavs, outs, tag):
         f"{walls}")
 
 
+SEGMENTATION_KERNELS = ("sidekit_fe", "viterbi")   # K <= 3 decodes only
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count."""
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+
+    return {"sidekit_fe": fe_kernel.sidekit_features.launches,
+            "viterbi": tv.viterbi_scan.launches,
+            "viterbi_general": tv.viterbi_scan_general.launches}
+
+
+def reset_kernel_counts():
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+
+    fe_kernel.sidekit_features.launches = 0
+    tv.viterbi_scan.launches = 0
+    tv.viterbi_scan_general.launches = 0
+
+
+def check_segmentation_launches(counts, what):
+    """A segmentation or VFS run launches the features and K <= 3 Viterbi
+    kernels, and never the general-K one (its decodes have 2 or 3
+    states)."""
+    for name, n in counts.items():
+        if name in SEGMENTATION_KERNELS:
+            check(n > 0, f"{what} never launched the {name} kernel")
+        else:
+            check(n == 0, f"{what} launched the {name} kernel {n} times")
+
+
 def phase_main(torch, dev, workdir):
     from inaspeechsegmenter_tpu_torch import Segmenter
     from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
-    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
     from inaspeechsegmenter_tpu_torch.dsp.sidekit import frame_count
     from inaspeechsegmenter_tpu_torch.models.synthetic import (
         install_synthetic_models)
@@ -444,21 +497,18 @@ def phase_main(torch, dev, workdir):
     log(f"[main] Segmenter(device={dev}) built in "
         f"{time.perf_counter() - t0!r} s")
 
-    fe_kernel.sidekit_features.launches = 0
-    tv.viterbi_scan.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     dur, n_ok, avg, lmsg = seg.batch_process(wavs, csvs)
     batch_s = time.perf_counter() - t0
-    launches = {"sidekit_fe": fe_kernel.sidekit_features.launches,
-                "viterbi": tv.viterbi_scan.launches}
+    launches = kernel_counts()
     audio_s = sum(len(sig) for sig in files.values()) / SR
     log(f"[main] batch_process of {len(wavs)} files ({audio_s!r} s of audio, "
         f"prefetch depth {prefetch_depth()}): {batch_s!r} s, rtf "
         f"{audio_s / batch_s!r}, statuses {[m[1:] for m in lmsg]}, "
         f"launches {launches}")
     check(n_ok == len(wavs), f"batch statuses {lmsg}")
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched the {name} kernel")
+    check_segmentation_launches(launches, "the main path")
 
     for (name, sig), csv in zip(files.items(), csvs):
         text, header, rows = read_csv(csv)
@@ -560,14 +610,14 @@ def segmentation_split(torch, dev, seg, wav, reps=5):
         captured.append([a.clone() for a in args])
         return tv.viterbi_scan(*args)
 
-    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    reset_kernel_counts()
     pipeline.viterbi_scan = capture
     try:
         seg(wav)
     finally:
         pipeline.viterbi_scan = tv.viterbi_scan
-    per_file = {"sidekit_fe": fe_kernel.sidekit_features.launches - fe0,
-                "viterbi": tv.viterbi_scan.launches - vt0}
+    torch.cuda.synchronize()
+    per_file = kernel_counts()
     for name, args in zip(("energy", "VAD", "gender"), captured):
         ms = cuda_ms(lambda: tv.viterbi_scan(*args), 10, torch)
         T, K = args[0].shape
@@ -594,13 +644,27 @@ def rel_l2(a, b):
                   / np.linalg.norm(b, axis=1)).max())
 
 
+@contextlib.contextmanager
+def vbx_grid(on):
+    """Every VBx frontend on the int16 grid (``on``) or on the f32 path,
+    whatever its device (the card's own is the grid, the CPU's the f32
+    path): to hold the two paths against each other, and the card's grid
+    against the CPU's."""
+    from inaspeechsegmenter_tpu_torch.dsp import vbx
+
+    by_device = vbx.vbx_i16_enabled
+    vbx.vbx_i16_enabled = lambda device: on
+    try:
+        yield
+    finally:
+        vbx.vbx_i16_enabled = by_device
+
+
 def phase_vfs(torch, dev, workdir, files, wavs, models):
     """VFS on the card: full-width ResNet101 (seeded random weights) and the
     synthetic MLP, batch-scored over phase 2's three WAVs."""
     from inaspeechsegmenter_tpu_torch import Segmenter, VoiceFemininityScoring
     from inaspeechsegmenter_tpu_torch.annotations import SpeechTimeline
-    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
     from inaspeechsegmenter_tpu_torch.dsp.vbx import (
         VbxFrontend, device_atol, host_segment)
     from inaspeechsegmenter_tpu_torch.models.resnet import ResNet101XVector
@@ -618,21 +682,18 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
 
     csvs = [os.path.join(workdir, "vfs", os.path.basename(w)[:-4] + ".csv")
             for w in wavs]
-    fe_kernel.sidekit_features.launches = 0
-    tv.viterbi_scan.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     dur, n_ok, avg, lmsg = vfs.batch_score(wavs, csvs)
     batch_s = time.perf_counter() - t0
-    launches = {"sidekit_fe": fe_kernel.sidekit_features.launches,
-                "viterbi": tv.viterbi_scan.launches}
+    launches = kernel_counts()
     audio_s = sum(len(sig) for sig in files.values()) / SR
     log(f"[vfs] batch_score of {len(wavs)} files ({audio_s!r} s of audio, "
         f"prefetch depth {prefetch_depth()}): {batch_s!r} s, rtf "
         f"{audio_s / batch_s!r}, statuses {[m[1:] for m in lmsg]}, "
         f"launches {launches}")
     check(n_ok == len(wavs), f"vfs batch statuses {lmsg}")
-    for name, n in launches.items():
-        check(n > 0, f"the VFS run never launched the {name} kernel")
+    check_segmentation_launches(launches, "the VFS run")
     warm_batch_walls(vfs.batch_score, wavs, csvs, "vfs")
 
     vad = Segmenter("smn", False, ffmpeg=None, device=dev, model_dir=models,
@@ -655,16 +716,20 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
         check(int(n_vec) > 0 and 0.0 <= float(score) <= 1.0,
               f"{name}: vfs row {lines[1]!r}")
 
-    # cuda against cpu, stage by stage, on the first VFS_PART_SECONDS of mix60
+    # cuda against cpu, stage by stage, on the first VFS_PART_SECONDS of
+    # mix60; like with like: the card's default is the int16 grid, so the
+    # CPU takes it too
     part = files["mix60"][:VFS_PART_SECONDS * SR]
     signal = part.astype(np.float64) / 32768.0
-    fea_c = vfs.features.features(signal)
-    fea_p = VbxFrontend("cpu").features(signal)
+    with vbx_grid(True):
+        fea_c = vfs.features.features(signal)
+        fea_p = VbxFrontend("cpu").features(signal)
     n_fr = fea_p.shape[0]
+    atol = device_atol(n_fr, blocked=True)
     fea_err = float((fea_c.cpu() - fea_p).abs().max())
-    log(f"[vfs] {VFS_PART_SECONDS} s part: VBx features cuda vs cpu "
-        f"max_abs_err={fea_err!r} (T={n_fr}, atol {device_atol(n_fr)!r})")
-    check(fea_err <= device_atol(n_fr), "VBx features differ")
+    log(f"[vfs] {VFS_PART_SECONDS} s part: VBx features (int16 grid) cuda vs "
+        f"cpu max_abs_err={fea_err!r} (T={n_fr}, atol {atol!r})")
+    check(fea_err <= atol, "VBx features differ")
     vfs_cpu = VoiceFemininityScoring("bgc", ffmpeg=None, device="cpu",
                                      model_dir=models, xvector_params=params,
                                      allow_download=False)
@@ -684,20 +749,21 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     check(p_err <= 1e-4, "MLP probabilities differ")
     same_vad = (vfs.vad.segment_signal(part)
                 == vfs_cpu.vad.segment_signal(part))
-    got, want = vfs.score_signal(part), vfs_cpu.score_signal(part)
+    with vbx_grid(True):
+        got, want = vfs.score_signal(part), vfs_cpu.score_signal(part)
     log(f"[vfs] {VFS_PART_SECONDS} s part end to end: cuda {got} cpu {want} "
         f"(VAD timelines {'equal' if same_vad else 'differ'})")
     if same_vad:
         check(got == want, "cuda and cpu VFS results differ")
 
-    # the warm 10 min file: wall time and the stage split
+    # the warm 10 min file: wall time and the stage split (of the f32
+    # path; phase 6(a) splits the int16 grid's)
     sig = files["mix600"]
     wav = wavs[list(files).index("mix600")]
-    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    reset_kernel_counts()
     vfs(wav)
     torch.cuda.synchronize()
-    per_file = {"sidekit_fe": fe_kernel.sidekit_features.launches - fe0,
-                "viterbi": tv.viterbi_scan.launches - vt0}
+    per_file = kernel_counts()
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
@@ -737,8 +803,8 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
         xm.net(fea[:WINLEN].T[None])
     flops = counter.get_total_flops()       # convs + projection, one window
     for name, t in (("VAD (Segmenter smn, no gender)", t_vad),
-                    ("VBx features, host dither + pad", t_host),
-                    ("VBx features, upload + device", t_dev),
+                    ("VBx f32 path, host dither + pad", t_host),
+                    ("VBx f32 path, upload + device", t_dev),
                     ("ResNet101 x-vectors", t_res),
                     ("MLP + scoring", t_mlp)):
         log(f"[vfs] stage {name}: {t * 1e3!r} ms ({100 * t / total:.1f}%)")
@@ -751,9 +817,10 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
         f"{256 * flops / ms / 1e9!r} TFLOP/s")
     seg_dev = torch.from_numpy(seg).to(dev)
     fe_ms = cuda_ms(lambda: vfs.features.device_features(seg_dev), 10, torch)
-    log(f"[vfs] VBx device features (plain PyTorch), 10 min: {fe_ms!r} ms "
-        f"for {fea.shape[0]} frames; kernel launches per file {per_file}")
-    return vfs, params, launches, per_file
+    log(f"[vfs] VBx device features (plain PyTorch, f32 path), 10 min: "
+        f"{fe_ms!r} ms for {fea.shape[0]} frames; kernel launches per file "
+        f"{per_file}")
+    return vfs, params, launches, per_file, n_win / t_res
 
 
 # --------------------------------------------------------------------------
@@ -857,8 +924,6 @@ def phase_online(torch, dev, workdir, seg, vfs, files, wavs):
     run, one online 10 min file."""
     from inaspeechsegmenter_tpu_torch import OnlineVFS
     from inaspeechsegmenter_tpu_torch.annotations import SpeechTimeline
-    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
     from inaspeechsegmenter_tpu_torch.online import follow_wav
 
     sig = files["mix600"]
@@ -884,20 +949,18 @@ def phase_online(torch, dev, workdir, seg, vfs, files, wavs):
     check(n_diff <= 0.001 * n20, "streaming and fused labels differ on >0.1%")
 
     # the main path of this phase: one online file, counted
-    fe_kernel.sidekit_features.launches = 0
-    tv.viterbi_scan.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     online, final, stats = drive_online(torch, seg, sig)
     wall = time.perf_counter() - t0
-    per_file = {"sidekit_fe": fe_kernel.sidekit_features.launches,
-                "viterbi": tv.viterbi_scan.launches}
+    torch.cuda.synchronize()
+    per_file = kernel_counts()
     n_diff, n_fr = frames_differ(final, seg.segment_signal(sig))
     log(f"[online] mix600 OnlineSegmenter, {ONLINE_BLOCK_SECONDS} s blocks: "
         f"{stats}, wall {wall!r} s; finalize vs segment_signal: {n_diff} of "
         f"{n_fr} frames differ; kernel launches {per_file}")
     check(n_diff <= 0.001 * n_fr, "online finalize differs on >0.1%")
-    for name, n in per_file.items():
-        check(n > 0, f"the online path never launched the {name} kernel")
+    check_segmentation_launches(per_file, "the online path")
 
     # follow mode on the 60 s mix, written by a recorder thread
     path = os.path.join(workdir, "follow60.wav")
@@ -953,22 +1016,6 @@ CNN_TIER_ATOL = 2e-2            # the JAX package's own tier tolerance
 XVEC_TIER_RTOL = {"high": 1e-2, "bf16": 5e-2}
 TIERS = ("highest", "high", "bf16")
 FFMPEG_WINDOW = (10.0, 40.0)
-
-
-def kernel_counts():
-    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
-
-    return {"sidekit_fe": fe_kernel.sidekit_features.launches,
-            "viterbi": tv.viterbi_scan.launches}
-
-
-def reset_kernel_counts():
-    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
-
-    fe_kernel.sidekit_features.launches = 0
-    tv.viterbi_scan.launches = 0
 
 
 def write_hdf5_models(directory):
@@ -1300,9 +1347,10 @@ def phase_ffmpeg(torch, dev, workdir, seg, files, wavs, models):
               f"not {a}-{b}")
         check(all(x[2] == y[1] for x, y in zip(lseg[:-1], lseg[1:])),
               "ffmpeg decode: segments do not tile the window")
-    for name, k in launches.items():
-        check(per_file[name] > 0 and k > per_file[name],
-              f"the ffmpeg path did not launch the {name} kernel")
+    check_segmentation_launches(per_file, "the ffmpeg path")
+    for name in SEGMENTATION_KERNELS:
+        check(launches[name] > per_file[name],
+              f"the ffmpeg window did not launch the {name} kernel")
     n_diff, n_fr = frames_differ(whole, seg(wavs[list(files).index("mix60")]))
     log(f"[real] ffmpeg stand-in, 44.1 kHz stereo mix60: {len(whole)} "
         f"segments, window {FFMPEG_WINDOW} {len(window)} segments; "
@@ -1327,6 +1375,387 @@ def phase_real_inputs(torch, dev, workdir, seg, vfs, params, files, wavs,
     phase_hdf5(torch, dev, workdir, seg, vfs, files, wavs, models)
     phase_tiers(torch, dev, workdir, vfs, params, files, wavs, models)
     return phase_ffmpeg(torch, dev, workdir, seg, files, wavs, models)
+
+
+# --------------------------------------------------------------------------
+GENERAL_K_CONSECUTIVE = 10      # 3 states of 10 frames at least: K = 30
+GENERAL_K_CONSTRAINED = 8       # states of the constrained decode
+
+
+def host_ms(fn, reps=5):
+    """Median host wall of ``fn`` (no device sync inside the timing; one
+    before each run)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return out, float(np.median(times))
+
+
+def synced_ms(torch, fn, reps=3):
+    """Median wall of ``fn`` with a device sync before and after."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def phase_vbx_grid(torch, dev, vfs, files):
+    """6(a): the int16 VBx grid on the 10 min mix.  -> (features, launches
+    of one VFS file on the grid)."""
+    from inaspeechsegmenter_tpu_torch.annotations import SpeechTimeline
+    from inaspeechsegmenter_tpu_torch.dsp import vbx_host
+    from inaspeechsegmenter_tpu_torch.dsp.vbx import (
+        VBX_BLK, VbxFrontend, VbxPcmStream, device_atol, host_segment)
+
+    sig = files["mix600"]
+    n = len(sig)
+    signal = sig.astype(np.float64) / 32768.0
+    fe = vfs.features
+    with vbx_grid(False):
+        fea32 = fe.features(signal)
+        want_f32 = vfs.score_signal(sig, "mix600")
+    fea16 = fe._features_i16(sig, n)
+    n_fr = fea16.shape[0]
+    # each path's CMVN cumsum rounds on its own: the f32 path's over the
+    # whole file, the grid's over one block at most
+    bound_f32, bound_i16 = device_atol(n_fr), device_atol(n_fr, blocked=True)
+    err = float((fea16 - fea32).abs().max())
+    # the reference's float64 host features (dither from the same seed)
+    ref = torch.from_numpy(vbx_host.get_features(signal)).to(dev)
+    err16 = float((fea16 - ref).abs().max())
+    err32 = float((fea32 - ref).abs().max())
+    log(f"[grid] mix600 (T={n_fr}, {-(-n_fr // VBX_BLK)} blocks of "
+        f"{VBX_BLK}): int16 grid vs f32 path max_abs={err!r} (bound "
+        f"{bound_f32 + bound_i16!r}); against the float64 host reference "
+        f"(dsp.vbx_host) int16 grid {err16!r} (bound {bound_i16!r}), f32 "
+        f"path {err32!r}")
+    check(err <= bound_f32 + bound_i16, "int16 and f32 VBx features differ")
+    check(err16 <= bound_i16, "the int16 grid differs from the reference")
+
+    # host work: the f32 path's host half against the grid's
+    fresh = VbxFrontend(dev)
+    _, grow_ms = synced_ms(torch, lambda: fresh._dither_buffer(n + 2 * SR),
+                           reps=1)
+    _, f32_host = host_ms(lambda: host_segment(signal))
+    x = torch.from_numpy(sig).to(dev)
+    _, i16_host = host_ms(lambda: fe.features_from_pcm([x], n))
+    dev_ms = cuda_ms(lambda: fe.features_from_pcm([x], n), 5, torch)
+    log(f"[grid] mix600 host work: f32 path host half (scale, dither, "
+        f"mirror pad in numpy) {f32_host!r} ms; int16 grid from the VAD's "
+        f"upload {i16_host!r} ms (enqueue, no sync); one-time dither growth "
+        f"{grow_ms!r} ms; blocked features on the device {dev_ms!r} ms "
+        "(CUDA events)")
+
+    # the VFS tuple on both paths, and the shared-PCM route
+    got = vfs.score_signal(sig, "mix600")
+    log(f"[grid] mix600 VFS on the int16 grid {got}, on the f32 path "
+        f"{want_f32}")
+    check(got == want_f32, "VFS differs between the int16 and f32 paths")
+    stream = VbxPcmStream(fe, n)
+    rng = np.random.default_rng(6)
+    pos = 0
+    while pos < n:
+        k = int(rng.integers(1, 3 * SR))
+        stream.append(sig[pos:pos + k])
+        pos += k
+    check(torch.equal(stream.finish(), fea16),
+          "VbxPcmStream in pieces differs from the whole-file features")
+    lseg, pcm = vfs.vad.segment_signal(sig, 0, "mix600", return_pcm=True)
+    check(pcm is not None and len(pcm) == 1 and pcm[0].dtype == torch.int16,
+          "segment_signal(return_pcm=True) handed back no int16 upload")
+    check(torch.equal(fe.features_from_pcm(pcm, n), fea16),
+          "the shared-PCM route differs from _features_i16")
+    log("[grid] VbxPcmStream in uneven pieces (1 sample to 3 s) bit-equal "
+        "to the whole-file call; shared-PCM route bit-equal to _features_i16")
+
+    # the VFS path's stage split on the grid (median of 3 by total)
+    splits = []
+    for _ in range(3):
+        (lseg, pcm), t_vad = synced_ms(torch, lambda: vfs.vad.segment_signal(
+            sig, 0, "mix600", return_pcm=True), reps=1)
+        timeline = SpeechTimeline.from_vad(lseg)
+        fea, t_fea = synced_ms(torch, lambda: fe.features_from_pcm(pcm, n),
+                               reps=1)
+        xv, t_res = synced_ms(torch, lambda: vfs.xvector_model(
+            "mix600", fea, n / SR, timeline=timeline), reps=1)
+        res, t_mlp = synced_ms(torch, lambda: vfs._score_xvectors(
+            xv, timeline, timeline.total_duration()), reps=1)
+        splits.append((t_vad, t_fea, t_res, t_mlp))
+    t_vad, t_fea, t_res, t_mlp = sorted(splits, key=sum)[1]
+    total = t_vad + t_fea + t_res + t_mlp
+    for name, t in (("VAD + int16 upload", t_vad),
+                    ("VBx int16 grid from the upload", t_fea),
+                    ("ResNet101 x-vectors", t_res), ("MLP + scoring", t_mlp)):
+        log(f"[grid] mix600 VFS stage {name}: {t!r} ms "
+            f"({100 * t / total:.1f}%)")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        vfs.score_signal(sig, "mix600")
+        walls.append(time.perf_counter() - t0)
+    reset_kernel_counts()
+    vfs.score_signal(sig, "mix600")
+    torch.cuda.synchronize()
+    per_file = kernel_counts()
+    rtf = n / SR / float(np.median(walls))
+    log(f"[grid] mix600 VFS stages sum {total!r} ms; result {res}; warm "
+        f"score_signal walls {walls} s, rtf {rtf!r}; kernel launches per "
+        f"file {per_file}")
+    check_segmentation_launches(per_file, "the VFS on the int16 grid")
+    return fea16, per_file
+
+
+def phase_bucket(torch, vfs, fea, speech_rate):
+    """6(b): the ResNet over all windows of the 10 min mix with the tail
+    bucket, and the padded tail sub-batch against the ragged one."""
+    from inaspeechsegmenter_tpu_torch.vfs import STEP, WINLEN
+
+    xm = vfs.xvector_model
+    starts = list(range(0, fea.shape[0] - WINLEN, STEP))
+    sub, buckets = xm._xvec_layout()
+    xm.embeddings_from_features(fea, starts)                     # warm-up
+    _, ms = synced_ms(torch, lambda: xm.embeddings_from_features(fea, starts))
+    rate = len(starts) / ms * 1e3
+    tail = len(starts) % sub
+    bucket = next(b for b in buckets if b >= tail) if tail else 0
+    log(f"[bucket] ResNet over all {len(starts)} windows of mix600 with the "
+        f"tail bucket ({len(starts) // sub} x {sub} + {tail} padded to "
+        f"{bucket}): {ms!r} ms, windows/s {rate!r}; phase 3's speech "
+        f"windows/s {speech_rate!r} (ratio {rate / speech_rate!r})")
+    if tail:
+        st = torch.tensor(starts[-tail:], device=fea.device)
+        wins = fea[st[:, None] + torch.arange(WINLEN, device=fea.device)[
+            None, :]].transpose(1, 2).contiguous()
+        with torch.no_grad():
+            ragged_ms = cuda_ms(lambda: xm.net(wins), 5, torch)
+            padded_ms = cuda_ms(lambda: xm.get_embeddings_batch(wins), 5,
+                                torch)
+            full = fea[torch.tensor(starts[:sub], device=fea.device)[:, None]
+                       + torch.arange(WINLEN, device=fea.device)[None, :]
+                       ].transpose(1, 2).contiguous()
+            full_ms = cuda_ms(lambda: xm.net(full), 5, torch)
+        log(f"[bucket] tail sub-batch of {tail} windows: ragged forward "
+            f"{ragged_ms!r} ms, padded to {bucket} {padded_ms!r} ms; a full "
+            f"sub-batch of {sub} {full_ms!r} ms (CUDA events, mean of 5)")
+
+
+def phase_online_vfs(torch, vfs, files):
+    """6(c): ``OnlineVFS`` over the 10 min mix in 0.5 s blocks on the int16
+    grid.  -> the kernel launches of that online file."""
+    from inaspeechsegmenter_tpu_torch import OnlineVFS
+
+    sig = files["mix600"]
+    step = int(ONLINE_BLOCK_SECONDS * SR)
+    reset_kernel_counts()
+    ov = OnlineVFS(vfs, "mix600")
+    polls, retained = [], []
+    t0 = time.perf_counter()
+    for pos in range(0, len(sig), step):
+        ov.feed(sig[pos:pos + step])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ov.current()
+        torch.cuda.synchronize()
+        polls.append((time.perf_counter() - t1) * 1e3)
+        if pos >= 400:      # the stream held 400 samples before this feed
+            retained.append(ov.buffered_samples)
+    got = ov.finalize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_file = kernel_counts()
+    check(ov._use_stream, "OnlineVFS did not take the int16 stream path")
+    want = vfs.score_signal(sig, "mix600")
+    log(f"[online-vfs] mix600 in {ONLINE_BLOCK_SECONDS} s blocks: "
+        f"{len(polls)} polls, poll median {float(np.median(polls))!r} ms, "
+        f"max {float(np.max(polls))!r} ms; PCM retained after 400 samples: "
+        f"max {max(retained)} samples; {len(ov._emb)} windows embedded "
+        f"online; wall {wall!r} s; finalize {got}, score_signal {want}; "
+        f"kernel launches {per_file}")
+    check(max(retained) == 0, "OnlineVFS kept PCM past 400 samples")
+    check(got == want, "OnlineVFS.finalize differs from score_signal")
+    check_segmentation_launches(per_file, "the online VFS")
+    return per_file
+
+
+def viterbi_general_bound(T, K):
+    return bound(T * K * 4 + T + T * 4 + (K * K + K) * 4,
+                 T * (2 * K * K + 2 * K))
+
+
+def phase_general_viterbi(torch, dev):
+    """6(d): the general-K kernel through ``viterbi_decoding``, against the
+    plain loop.  -> the kernel's JSON entry and the API run's launches."""
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
+
+    T = VITERBI_T
+    rng = np.random.default_rng(66)
+    em3 = np.log(rng.dirichlet(np.ones(3), T))
+    tr3 = diag_trans_exp(0.7, 3)
+    K8 = GENERAL_K_CONSTRAINED
+    em8 = np.log(rng.dirichlet(np.ones(K8), T))
+    tr8 = np.log(rng.dirichlet(np.ones(K8) * 3, K8))
+    con = np.zeros((T, K8), int)
+    con[rng.random((T, K8)) < 0.05] = tv.VITERBI_CONSTRAINT_FORBIDDEN
+    con[rng.choice(T, 500, replace=False), rng.integers(0, K8, 500)] = \
+        tv.VITERBI_CONSTRAINT_MANDATORY
+    reset8 = rng.random(T) < 0.001
+    cases = {f"consecutive={GENERAL_K_CONSECUTIVE} on 3 states (K="
+             f"{3 * GENERAL_K_CONSECUTIVE})":
+             (em3, tr3, dict(consecutive=GENERAL_K_CONSECUTIVE)),
+             f"K={K8}, forbidden and mandatory frames, resets":
+             (em8, tr8, dict(constraint=con, reset=reset8))}
+    reset_kernel_counts()
+    got = {name: tv.viterbi_decoding(em, tr, device=dev, **kw)
+           for name, (em, tr, kw) in cases.items()}
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(launches["viterbi_general"] == len(cases),
+          f"viterbi_decoding launched the general-K kernel "
+          f"{launches['viterbi_general']} times")
+    for name, (em, tr, kw) in cases.items():
+        t0 = time.perf_counter()
+        want = tv.viterbi_decoding(em, tr, device="cpu", **kw)
+        plain_api_ms = (time.perf_counter() - t0) * 1e3
+        n_diff = int((got[name] != want).sum())
+        log(f"[viterbi-k] viterbi_decoding {name}, T={T}: {n_diff} states "
+            f"differ from the plain run on the CPU ({plain_api_ms!r} ms)")
+        check(n_diff == 0, f"viterbi_decoding {name}: states differ")
+    # the kernel alone on the K = 30 expanded decode, against its plain
+    # version on the same card tensors
+    em, tr, ini, _, _ = tv._expand_consecutive(
+        em3.astype(np.float32), tr3, np.log(np.ones(3) / 3),
+        np.zeros((T, 3)), np.full(3, GENERAL_K_CONSECUTIVE))
+    K = em.shape[1]
+    reset = np.zeros(T, bool)
+    reset[0] = True
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        np.asarray(em, np.float32), np.asarray(tr, np.float32),
+        np.asarray(ini, np.float32), reset)]
+    sk = tv.viterbi_scan_general(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = tv.viterbi_scan_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_diff = int((sk != sp).sum())
+    check(n_diff == 0, f"general-K kernel K={K}: {n_diff} states differ")
+    ms = cuda_ms(lambda: tv.viterbi_scan_general(*args), 3, torch)
+    bound_ms, bound_by = viterbi_general_bound(T, K)
+    log(f"[viterbi-k] kernel T={T} K={K}: states equal to the plain loop; "
+        f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={bound_ms!r} "
+        f"({bound_by})")
+    entry = {"name": "viterbi_general", "route": "cuda",
+             "source": "inaspeechsegmenter_tpu_torch/csrc/viterbi.cu",
+             "replaces": "inaspeechsegmenter_tpu/decode/viterbi.py:222",
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "library_note": "no single PyTorch call computes the function",
+             "shape": f"T={T}, K={K} (3 states, consecutive="
+                      f"{GENERAL_K_CONSECUTIVE})"}
+    return entry, launches
+
+
+def phase_dnn_stage(torch, dev, seg, files, models):
+    """6(e): ``DnnSegmenter.__call__`` of the smn and gender stages on the
+    60 s mix, cuda against cpu.  -> the kernel launches of the cuda run."""
+    from inaspeechsegmenter_tpu_torch import segmenter as tseg
+    from inaspeechsegmenter_tpu_torch.pipeline import rle
+
+    sig = files["mix60"]
+    mspec, loge, t, difflen = seg._sig2feats(sig)
+    n20 = (t + 1) // 2
+    energy = seg.pipeline._energy_states20(loge[:t])[:n20].cpu().numpy()
+    lseg = [("energy" if lab else "noEnergy", a, b)
+            for lab, a, b in rle(energy.astype(np.int32))]
+    m = mspec.cpu().numpy()
+    out = {}
+    for device in (dev, "cpu"):
+        vad = tseg.SpeechMusicNoise(32, False, device=device,
+                                    model_dir=models)
+        gender = tseg.Gender(32, False, device=device, model_dir=models)
+        if device == dev:
+            reset_kernel_counts()
+        t0 = time.perf_counter()
+        lv = vad(m, lseg)
+        lg = gender(m, lv)
+        wall = time.perf_counter() - t0
+        if device == dev:
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+        out[str(device)] = (lv, lg, wall)
+    (lv_c, lg_c, w_c), (lv_p, lg_p, w_p) = out[str(dev)], out["cpu"]
+
+    def frames(ls):
+        return np.concatenate([np.full(b - a, lab, object)
+                               for lab, a, b in ls])
+
+    n_diff = int((frames(lg_c) != frames(lg_p)).sum())
+    log(f"[dnn-stage] mix60 DnnSegmenter.__call__ smn then gender: "
+        f"{len(lg_c)} segments; cuda vs cpu: lseg equal {lg_c == lg_p} "
+        f"(smn {lv_c == lv_p}), {n_diff} of {n20} frames differ; walls cuda "
+        f"{w_c!r} s, cpu {w_p!r} s; kernel launches {launches}")
+    check(n_diff <= 0.001 * n20, "DnnSegmenter cuda and cpu differ on >0.1%")
+    check(launches == {"sidekit_fe": 0, "viterbi": 2, "viterbi_general": 0},
+          "the two stages did not launch one K <= 3 Viterbi each")
+    return launches
+
+
+def phase_resampled(torch, dev, workdir, seg, files, wavs):
+    """6(f): a 44.1 kHz WAV with ``ffmpeg=None`` through the native
+    resampler.  -> the kernel launches of that file."""
+    from inaspeechsegmenter_tpu_torch.audio import native
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+
+    t0 = time.perf_counter()
+    check(native.available(), "the native resampler did not build")
+    build_s = time.perf_counter() - t0
+    mono = files["mix60"].astype(np.float64) / 32768.0
+    n = round(len(mono) * 44100 / SR)
+    up = np.fft.irfft(np.fft.rfft(mono), n) * (n / len(mono))
+    wav44 = os.path.join(workdir, "mix60_44k.wav")
+    write_wav(wav44, to_int16(np.clip(up, -1, 1)), 44100)
+    reset_kernel_counts()
+    got = seg(wav44)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    n_diff, n_fr = frames_differ(got, seg(wavs[list(files).index("mix60")]))
+    log(f"[resample] 44.1 kHz PCM16 mix60 with ffmpeg=None: native build and "
+        f"load {build_s!r} s ({os.path.basename(native.library_path())}); "
+        f"{len(got)} segments; {n_diff} of {n_fr} frames "
+        f"({100 * n_diff / n_fr!r}%) differ from the 16 kHz WAV's labels; "
+        f"kernel launches {launches}")
+    check(got[0][1] == 0.0 and all(x[2] == y[1] for x, y in zip(got[:-1],
+                                                               got[1:])),
+          "resampled segments do not tile the file")
+    check_segmentation_launches(launches, "the resampled file")
+    check(launches["sidekit_fe"] == 1, "the resampled file skipped features")
+    return launches
+
+
+def phase_reference(torch, dev, workdir, seg, vfs, files, wavs, models,
+                    speech_rate):
+    """Phase 6: the int16 grid, the tail bucket, the online VFS stream, the
+    general-K Viterbi, the per-stage API and the resampler."""
+    fea16, per_vfs = phase_vbx_grid(torch, dev, vfs, files)
+    phase_bucket(torch, vfs, fea16, speech_rate)
+    per_online = phase_online_vfs(torch, vfs, files)
+    entry, per_api = phase_general_viterbi(torch, dev)
+    per_stage = phase_dnn_stage(torch, dev, seg, files, models)
+    per_resampled = phase_resampled(torch, dev, workdir, seg, files, wavs)
+    return entry, {"vfs_int16_grid": per_vfs, "online_vfs": per_online,
+                   "viterbi_decoding": per_api, "dnn_stage": per_stage,
+                   "resampled_wav": per_resampled}
 
 
 def main():
@@ -1357,20 +1786,27 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         seg, launches, files, wavs, models, per_file = phase_main(
             torch, dev, workdir)
-        vfs, params, launches_vfs, per_vfs_file = phase_vfs(
+        vfs, params, launches_vfs, per_vfs_file, speech_rate = phase_vfs(
             torch, dev, workdir, files, wavs, models)
         per_online_file = phase_online(torch, dev, workdir, seg, vfs, files,
                                        wavs)
         launches_real, per_ffmpeg_file = phase_real_inputs(
             torch, dev, workdir, seg, vfs, params, files, wavs, models)
+        general, per_ref = phase_reference(torch, dev, workdir, seg, vfs,
+                                           files, wavs, models, speech_rate)
+    kernels.append(general)
     for k in kernels:
-        k["launches"] = (launches[k["name"]] + launches_vfs[k["name"]]
-                         + per_online_file[k["name"]]
-                         + launches_real[k["name"]])
-        k["launches_per_file"] = {"segmentation": per_file[k["name"]],
-                                  "vfs": per_vfs_file[k["name"]],
-                                  "online": per_online_file[k["name"]],
-                                  "ffmpeg": per_ffmpeg_file[k["name"]]}
+        name = k["name"]
+        earlier = {"segmentation": per_file, "vfs": per_vfs_file,
+                   "online": per_online_file, "ffmpeg": per_ffmpeg_file}
+        k["launches_per_file"] = {
+            path: counts[name]
+            for path, counts in {**earlier, **per_ref}.items()}
+        # the main-path runs of phases 2-6 (phase 1's comparisons excluded)
+        k["launches"] = sum(c[name] for c in (
+            launches, launches_vfs, per_online_file, launches_real,
+            *per_ref.values()))
+        check(k["launches"] > 0, f"no main-path run launched {name}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,12 @@ Port of ``inaspeechsegmenter_tpu/audio/io.py`` (reference io.py:32-79):
 * With ffmpeg, any media file or url is decoded by an ffmpeg subprocess
   piping 16 kHz mono pcm_s16le WAV to stdout, with start/stop windows
   passed as ``-ss`` / ``-to``.
-* With ``ffmpeg=None``, only local 16 kHz WAV files are accepted and
+* With ``ffmpeg=None``, only local WAV files are accepted and
   start/stop/url raise NotImplementedError, the reference's no-ffmpeg
   contract (io.py:37-55), with the port's RIFF reader in place of
-  libsndfile.  The JAX package's native resampler is not ported: a WAV at
-  another rate raises.
+  libsndfile.  A WAV at another rate than 16 kHz goes through the native
+  resampler (``audio/native.py``, built at first use), as in the JAX
+  package; where it cannot be built (no C++ compiler) such a WAV raises.
 """
 
 from __future__ import annotations
@@ -63,13 +64,21 @@ def media2sig16kmono(medianame, start_sec=None, stop_sec=None,
                 f"or use ffmpeg. You gave medianame={medianame}."
             )
         sig, sr = read_wav(medianame, dtype=dtype)
-        if sr != SR:
-            raise ValueError(
-                f"Without ffmpeg, only files sampled at 16000 Hz are "
-                f"supported. The file {medianame} is sampled at {sr} Hz.")
         if sig.ndim > 1:
             # mono mixdown, rounded and saturated for integer dtypes
             sig = _cast_signal(sig.mean(axis=1), dtype)
+        if sr != SR:
+            from . import native
+
+            if not native.available():
+                raise ValueError(
+                    f"Without ffmpeg, only files sampled at 16000 Hz are "
+                    f"supported (no C++ compiler to build the native "
+                    f"resampler). The file {medianame} is sampled at {sr} "
+                    f"Hz.")
+            sig = native.resample(sig.astype(np.float32), sr, SR)
+            # sinc overshoot past full scale saturates, never wraps
+            return _cast_signal(sig, dtype)
         return sig
 
     cmd = [ffmpeg, "-i", medianame, "-f", "wav", "-acodec", "pcm_s16le",

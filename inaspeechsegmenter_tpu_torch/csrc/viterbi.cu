@@ -497,3 +497,254 @@ extern "C" int iss_viterbi(const float* em, const uint8_t* reset,
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// The general-K decode: any number of states (1 <= K <= GK_MAX), which the
+// decode above cannot take (its 2-bit back-pointers cap it at K <= 3).
+// viterbi_scan routes K > 3 here: viterbi_decoding's minimum-duration
+// expansion (consecutive = 10 on 3 states is K = 30) and per-frame
+// constraints on many states.
+//
+// Replaces the same lax.scan, inaspeechsegmenter_tpu/decode/viterbi.py::
+// _viterbi_scan, at any K.  A simple design that is exact first:
+//   - one block for the sequence, its threads striding over the K states
+//     (a warp up to K = 32); the renormalised scores v in shared memory,
+//     and the transition matrix too when it fits (K <= 204), else read
+//     through the cache; the emissions and reset flags of the next
+//     stretch of frames (16 KB of them) staged in shared memory by the
+//     whole block, so the serial chain waits on shared memory, not on
+//     device memory;
+//   - per frame, each state k' takes the max over k of v[k] + tr[k][k'],
+//     the first index winning ties and a NaN winning as in jnp.argmax /
+//     jnp.max; then em[t][k'] + max (em + init at a reset, with identity
+//     pointers); a block reduction gives the max and its first index; v
+//     becomes v - max;
+//   - back-pointers one byte a state a frame (two bytes when K > 256), the
+//     frame's argmax in an int32;
+//   - a serial backtrack by one thread, from pointer rows that the block
+//     stages in shared memory a stretch at a time.
+// What bounds it: the dependence from frame to frame, as for the decode
+// above (the bytes, T * K * 4 of emissions, take microseconds); a frame
+// costs K dependent adds and compares a thread plus a reduction and one or
+// two barriers.  Its first version loaded each frame's inputs from device
+// memory one frame ahead, and that latency set its pace (385 ms at
+// T = 180,000, K = 30 on the H100); staging them in stretches leaves the
+// chain of shared-memory reads.  The chunk-parallel scheme above would
+// lift the serial chain itself; it is not done here.
+// The float ops are _viterbi_scan's, one rounding each (__fadd_rn,
+// __fsub_rn): the states equal viterbi_scan_plain's bit for bit, NaN rows
+// included (an all -inf frame gives NaN scores, argmax 0).
+
+namespace {
+
+constexpr int GK_MAX = 8192;          // states
+constexpr int GK_PER_THREAD = 8;      // states a thread, at most
+constexpr int GK_TR_SMEM_MAX = 204;   // K whose K*K transitions sit in
+                                      // shared memory (166,464 bytes)
+constexpr int GK_STAGE_BYTES = 16384; // inputs staged for the forward,
+                                      // pointers for the backtrack
+
+// (bv, bi) <- the winner of (bv, bi) and (cv, ci) under jnp.argmax's rule
+// over indices: a NaN wins (the first one), else the greater value, ties
+// to the lower index.
+__device__ __forceinline__ void gk_combine(float& bv, int& bi, float cv,
+                                           int ci) {
+  const bool bn = bv != bv, cn = cv != cv;
+  const bool take = (bn || cn) ? (cn && (!bn || ci < bi))
+                               : (cv > bv || (cv == bv && ci < bi));
+  if (take) {
+    bv = cv;
+    bi = ci;
+  }
+}
+
+// up to 1024 threads: the register budget is 64 a thread (K > 992 spills
+// the per-state arrays to local memory rather than fail to launch)
+template <typename PtrT>
+__global__ void __launch_bounds__(1024) viterbi_general_kernel(
+    const float* __restrict__ em, const uint8_t* __restrict__ reset,
+    const float* __restrict__ trans, const float* __restrict__ init, int T,
+    int K, bool tr_smem, PtrT* ptr, int32_t* amax, int32_t* states) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* v = reinterpret_cast<float*>(smem);               // (K,)
+  float* red_v = v + K;                                    // (32,)
+  int* red_i = reinterpret_cast<int*>(red_v + 32);         // (32,)
+  float* tr_s = reinterpret_cast<float*>(red_i + 32);      // (K, K) or none
+  unsigned char* stage =
+      reinterpret_cast<unsigned char*>(tr_s + (tr_smem ? K * K : 0));
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
+  const float* tr = tr_smem ? tr_s : trans;
+  if (tr_smem) {
+    for (int i = tid; i < K * K; i += nt) tr_s[i] = trans[i];
+  }
+  float ini[GK_PER_THREAD], vn[GK_PER_THREAD];
+#pragma unroll
+  for (int s = 0; s < GK_PER_THREAD; ++s) {
+    const int k = tid + s * nt;
+    ini[s] = k < K ? init[k] : 0.0f;
+  }
+
+  // ---- forward: the inputs of G frames staged at a time -----------------
+  // (the chain of frames waits on shared memory, not on device memory)
+  int G = GK_STAGE_BYTES / (K * (int)sizeof(float) + 1);
+  if (G < 1) G = 1;
+  float* s_em = reinterpret_cast<float*>(stage);           // (G, K)
+  uint8_t* s_rst = reinterpret_cast<uint8_t*>(s_em + (size_t)G * K);  // (G,)
+  for (int t0 = 0; t0 < T; t0 += G) {
+    const int g = T - t0 < G ? T - t0 : G;
+    __syncthreads();                   // the previous stretch is read
+    for (int i = tid; i < g * K; i += nt) s_em[i] = em[(size_t)t0 * K + i];
+    for (int j = tid; j < g; j += nt) {
+      s_rst[j] = t0 + j == 0 || reset[t0 + j] != 0;   // frame 0 starts
+    }
+    __syncthreads();
+    for (int j = 0; j < g; ++j) {
+      const int t = t0 + j;
+      const bool rst = s_rst[j] != 0;
+      const float* e = s_em + (size_t)j * K;
+      float bv = __int_as_float(0xff800000);   // -inf
+      int bi = INT_MAX;
+#pragma unroll
+      for (int s = 0; s < GK_PER_THREAD; ++s) {
+        const int k2 = tid + s * nt;
+        if (k2 >= K) break;
+        float sc;
+        int arg;
+        if (rst) {
+          sc = ini[s];
+          arg = k2;
+        } else {
+          float best = __fadd_rn(v[0], tr[k2]);
+          arg = 0;
+          for (int k = 1; k < K; ++k) {
+            const float c = __fadd_rn(v[k], tr[(size_t)k * K + k2]);
+            if (best == best && !(c <= best)) {
+              best = c;
+              arg = k;
+            }
+          }
+          sc = best;
+        }
+        vn[s] = __fadd_rn(e[k2], sc);
+        ptr[(size_t)t * K + k2] = (PtrT)arg;
+        gk_combine(bv, bi, vn[s], k2);
+      }
+      // the row's max and its first index over the block
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, d);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, d);
+        gk_combine(bv, bi, ov, oi);
+      }
+      if (nwarps > 1) {
+        if (lane == 0) {
+          red_v[warp] = bv;
+          red_i[warp] = bi;
+        }
+        __syncthreads();
+        bv = red_v[0];
+        bi = red_i[0];
+        for (int w = 1; w < nwarps; ++w) {
+          gk_combine(bv, bi, red_v[w], red_i[w]);
+        }
+      }
+      // every v[k] was read above (with several warps, the barrier of the
+      // reduction orders the writes below after those reads)
+      if (nwarps == 1) __syncwarp();
+#pragma unroll
+      for (int s = 0; s < GK_PER_THREAD; ++s) {
+        const int k2 = tid + s * nt;
+        if (k2 >= K) break;
+        v[k2] = __fsub_rn(vn[s], bv);
+      }
+      if (tid == 0) amax[t] = bv != bv ? 0 : bi;
+      if (nwarps == 1) __syncwarp(); else __syncthreads();
+    }
+  }
+  __syncthreads();
+
+  // ---- backtrack: stretches of F frames staged in shared memory --------
+  // staged row j is frame lo + j for amax, frame lo + 1 + j for the
+  // pointers and the reset flag (a segment end when set)
+  const int row = K * (int)sizeof(PtrT);
+  int F = GK_STAGE_BYTES / (row + 5);
+  if (F < 1) F = 1;
+  int32_t* s_amax = reinterpret_cast<int32_t*>(stage);
+  PtrT* s_ptr = reinterpret_cast<PtrT*>(s_amax + F);
+  uint8_t* s_end = reinterpret_cast<uint8_t*>(s_ptr + (size_t)F * K);
+  int x = 0;
+  for (int hi = T; hi > 0; hi -= F) {
+    const int lo = hi - F > 0 ? hi - F : 0;
+    const int n = hi - lo;
+    __syncthreads();                   // the previous stretch is walked
+    for (int j = tid; j < n; j += nt) {
+      s_amax[j] = amax[lo + j];
+      s_end[j] = lo + 1 + j >= T ? 1 : reset[lo + 1 + j];
+    }
+    const int n_ptr = lo + n < T ? n : n - 1;   // rows that exist
+    for (int i = tid; i < n_ptr * K; i += nt) {
+      s_ptr[i] = ptr[(size_t)(lo + 1) * K + i];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int j = n - 1; j >= 0; --j) {
+        x = s_end[j] ? s_amax[j] : (int)s_ptr[(size_t)j * K + x];
+        states[lo + j] = x;
+      }
+    }
+  }
+}
+
+template <typename PtrT>
+cudaError_t launch_general(const float* em, const uint8_t* reset,
+                           const float* trans, const float* init, int T,
+                           int K, void* ptr, int32_t* amax, int32_t* states,
+                           cudaStream_t s) {
+  int nt = (K + 31) / 32 * 32;
+  if (nt > 1024) nt = 1024;
+  const bool tr_smem = K <= GK_TR_SMEM_MAX;
+  // the staging area serves the forward (G frames of K floats and a flag)
+  // and then the backtrack (F frames of K pointers, an argmax and a flag)
+  size_t stage = GK_STAGE_BYTES;
+  const size_t fwd_row = (size_t)K * sizeof(float) + 1;
+  const size_t bwd_row = (size_t)K * sizeof(PtrT) + 5;
+  if (fwd_row > stage) stage = fwd_row;
+  if (bwd_row > stage) stage = bwd_row;
+  const size_t smem = ((size_t)K + 64) * sizeof(float) +
+                      (tr_smem ? (size_t)K * K * sizeof(float) : 0) + stage;
+  const void* fn = (const void*)viterbi_general_kernel<PtrT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  viterbi_general_kernel<PtrT><<<1, nt, smem, s>>>(
+      em, reset, trans, init, T, K, tr_smem, reinterpret_cast<PtrT*>(ptr),
+      amax, states);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// emission (T,K) f32, reset (T,) bool bytes, trans (K,K) f32, init (K,)
+// f32, 1 <= K <= 8192.  Scratch: ptr (T,K) uint8 when K <= 256, else
+// uint16; amax (T,) int32.  states (T,) int32 out.  Returns the launch's
+// cudaError_t.
+extern "C" int iss_viterbi_general(const float* em, const uint8_t* reset,
+                                   const float* trans, const float* init,
+                                   long long T, int K, void* ptr,
+                                   int32_t* amax, int32_t* states,
+                                   void* stream) {
+  if (T <= 0 || T > INT_MAX || K < 1 || K > GK_MAX ||
+      (K + 1023) / 1024 > GK_PER_THREAD) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      K <= 256 ? launch_general<uint8_t>(em, reset, trans, init, (int)T, K,
+                                         ptr, amax, states, s)
+               : launch_general<uint16_t>(em, reset, trans, init, (int)T, K,
+                                          ptr, amax, states, s);
+  return (int)err;
+}

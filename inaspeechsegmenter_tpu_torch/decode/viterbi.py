@@ -12,6 +12,13 @@ tensors (its source comment says what bounds it, how its chunk-parallel
 design stays exact and how it is built) and runs :func:`viterbi_scan_plain`,
 a frame loop in numpy float32 with the same operations in the same order,
 for CPU tensors.  States are bit-equal between the two and to the JAX scan.
+That kernel takes K <= 3 states; :func:`viterbi_scan` sends more states to
+:func:`viterbi_scan_general`, the wrapper of the general-K kernel in the
+same source (one block, threads over the states, serial in T).
+
+:func:`viterbi_decoding` is the reference's constrained API (initial,
+minimum durations by state duplication, forbidden / mandatory frames;
+``inaspeechsegmenter_tpu/decode/viterbi.py:303-383``).
 """
 
 from __future__ import annotations
@@ -20,8 +27,16 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build
+from ..utils.device import resolve_device
 
-K_MAX = 3
+K_MAX = 3            # states of the chunk-parallel kernel
+K_GENERAL_MAX = 8192  # states of the general-K kernel
+
+VITERBI_CONSTRAINT_NONE = 0
+VITERBI_CONSTRAINT_FORBIDDEN = 1
+VITERBI_CONSTRAINT_MANDATORY = 2
+
+LOG_ZERO = float(np.log(1e-200))
 
 
 def viterbi_scan_plain(emission, transition, initial, reset):
@@ -62,16 +77,8 @@ def _max_blocks(dev):
     return min(256, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
-def viterbi_scan(emission, transition, initial, reset):
-    """emission (T, K) f32, transition (K, K), initial (K,), reset (T,) bool
-    (reset[0] is forced true) -> states (T,) int32 on the same device.
-
-    On CUDA the kernel spreads chunks of the sequence over a cooperative
-    grid of one block per SM; :func:`pass_count` and :func:`walked_chunks`
-    describe the last launch.
-    """
-    if emission.device.type == "cpu":
-        return viterbi_scan_plain(emission, transition, initial, reset)
+def _check_args(emission, transition, initial, reset, k_max):
+    """Raise unless the four tensors are what the kernels take."""
     if emission.device.type != "cuda":
         raise ValueError(f"unsupported device {emission.device}")
     dev = emission.device
@@ -79,8 +86,8 @@ def viterbi_scan(emission, transition, initial, reset):
         raise ValueError(f"emission must be (T, K) float32, got "
                          f"{emission.dtype} {tuple(emission.shape)}")
     T, K = emission.shape
-    if not 1 <= K <= K_MAX:
-        raise ValueError(f"the Viterbi kernel takes 1..{K_MAX} states, got {K}")
+    if not 1 <= K <= k_max:
+        raise ValueError(f"the Viterbi kernel takes 1..{k_max} states, got {K}")
     for name, t, shape, dtype in (
             ("emission", emission, (T, K), torch.float32),
             ("transition", transition, (K, K), torch.float32),
@@ -91,6 +98,24 @@ def viterbi_scan(emission, transition, initial, reset):
             raise ValueError(
                 f"{name} must be a contiguous {dtype} {shape} tensor on "
                 f"{dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def viterbi_scan(emission, transition, initial, reset):
+    """emission (T, K) f32, transition (K, K), initial (K,), reset (T,) bool
+    (reset[0] is forced true) -> states (T,) int32 on the same device.
+
+    On CUDA, K <= 3 runs the chunk-parallel kernel, which spreads chunks of
+    the sequence over a cooperative grid of one block per SM
+    (:func:`pass_count` and :func:`walked_chunks` describe its last
+    launch); K > 3 runs :func:`viterbi_scan_general`.
+    """
+    if emission.device.type == "cpu":
+        return viterbi_scan_plain(emission, transition, initial, reset)
+    if emission.dim() == 2 and emission.shape[1] > K_MAX:
+        return viterbi_scan_general(emission, transition, initial, reset)
+    _check_args(emission, transition, initial, reset, K_MAX)
+    dev = emission.device
+    T, K = emission.shape
     states = torch.empty((T,), dtype=torch.int32, device=dev)
     if T == 0:
         return states
@@ -121,6 +146,37 @@ def viterbi_scan(emission, transition, initial, reset):
 
 viterbi_scan.launches = 0
 viterbi_scan.last_ctl = None
+
+
+def viterbi_scan_general(emission, transition, initial, reset):
+    """:func:`viterbi_scan` at any K (1..``K_GENERAL_MAX``): the general-K
+    kernel for CUDA tensors, one block whose threads stride over the states
+    (back-pointers one byte a state a frame, two above 256 states), and
+    :func:`viterbi_scan_plain` for CPU tensors.  Has its own launch count.
+    """
+    if emission.device.type == "cpu":
+        return viterbi_scan_plain(emission, transition, initial, reset)
+    _check_args(emission, transition, initial, reset, K_GENERAL_MAX)
+    dev = emission.device
+    T, K = emission.shape
+    states = torch.empty((T,), dtype=torch.int32, device=dev)
+    if T == 0:
+        return states
+    ptr = torch.empty((T, K), dtype=torch.uint8 if K <= 256 else torch.int16,
+                      device=dev)
+    amax = torch.empty((T,), dtype=torch.int32, device=dev)
+    lib = cuda_build.library()
+    with torch.cuda.device(dev):
+        rc = lib.iss_viterbi_general(
+            emission.data_ptr(), reset.data_ptr(), transition.data_ptr(),
+            initial.data_ptr(), T, K, ptr.data_ptr(), amax.data_ptr(),
+            states.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch("viterbi_general", rc)
+    cuda_build.count_launch(viterbi_scan_general)
+    return states
+
+
+viterbi_scan_general.launches = 0
 
 
 def pass_count():
@@ -168,3 +224,85 @@ def viterbi_path(emission, transition, initial=None, reset=None):
     if T:
         reset[0] = True
     return viterbi_scan(emission, transition, initial, reset.contiguous())
+
+
+# -- the reference's constrained API (pyannote_viterbi.py:118-224) ------------
+
+def _expand_consecutive(emission, transition, initial, constraint,
+                        consecutive):
+    """Minimum-consecutive-state constraints by state duplication: state i
+    becomes C[i] chained sub-states; entering i lands on the first, each
+    advances to the next, and only the last may leave (the JAX package's
+    ``_expand_consecutive``, pyannote_viterbi.py:51-115)."""
+    K = len(consecutive)
+    new_k = int(np.sum(consecutive))
+    bounds = np.concatenate([[0], np.cumsum(consecutive)])
+    start, end = bounds[:-1], bounds[1:] - 1
+
+    new_t = np.full((new_k, new_k), LOG_ZERO)
+    for i in range(1, new_k):
+        new_t[i - 1, i] = 0.0  # log(1): forced advance within the chain
+    for i in range(K):
+        for j in range(K):
+            new_t[end[i], start[j]] = transition[i, j]
+
+    new_i = np.full((new_k,), LOG_ZERO)
+    new_i[start] = initial
+
+    col_of = np.concatenate([np.full(c, i) for i, c in enumerate(consecutive)])
+    return (emission[:, col_of], new_t, new_i, constraint[:, col_of],
+            col_of)
+
+
+def viterbi_decoding(emission, transition, initial=None, consecutive=None,
+                     constraint=None, reset=None, *, device="cuda"):
+    """(Constrained) Viterbi decoding with the reference signature
+    (pyannote_viterbi.py:118-144) plus ``reset``.
+
+    :param emission: (T, K) log-probabilities.
+    :param transition: (K, K) log-transitions.
+    :param initial: optional (K,) log-initial; uniform by default.
+    :param consecutive: minimum duration, an int or one per state.
+    :param constraint: optional (T, K) 0 none / 1 forbidden / 2 mandatory.
+    :param reset: optional (T,) bool, independent segments (the fused
+        decode's).
+    :param device: where the decode runs, ``cuda`` by default (K > 3 after
+        the duplication takes the general-K kernel).
+    :return: numpy int (T,) most probable states.
+    """
+    emission = np.asarray(emission, dtype=np.float32)
+    T, K = emission.shape
+    if consecutive is None:
+        consecutive = np.ones((K,), dtype=int)
+    elif np.isscalar(consecutive):
+        consecutive = int(consecutive) * np.ones((K,), dtype=int)
+    else:
+        consecutive = np.array(consecutive, dtype=int).reshape((K,))
+    consecutive = np.maximum(1, consecutive)
+    if initial is None:
+        initial = np.log(np.ones((K,)) / K)
+    else:
+        initial = np.asarray(initial, dtype=np.float64)
+    if constraint is None:
+        constraint = np.zeros((T, K))
+    constraint = np.asarray(constraint)
+    transition = np.asarray(transition, dtype=np.float64)
+
+    expand = bool(np.any(consecutive > 1))
+    if expand:
+        emission, transition, initial, constraint, col_of = \
+            _expand_consecutive(emission, transition, initial, constraint,
+                                consecutive)
+    # forbidden / mandatory frames through the emissions
+    emission = np.array(emission, dtype=np.float32, copy=True)
+    emission[constraint == VITERBI_CONSTRAINT_FORBIDDEN] = LOG_ZERO
+    mand_t, mand_k = np.where(constraint == VITERBI_CONSTRAINT_MANDATORY)
+    for t, k in zip(mand_t, mand_k):
+        keep = emission[t, k]
+        emission[t, :] = LOG_ZERO
+        emission[t, k] = keep
+
+    dev = resolve_device(device)
+    states = viterbi_path(torch.from_numpy(emission).to(dev), transition,
+                          initial, reset).cpu().numpy()
+    return col_of[states] if expand else states

@@ -108,10 +108,18 @@ class KernelSidekitFrontend:
         self.device = torch.device(device)
         self.consts = sidekit.frontend_consts(self.device)
 
-    def mspec_loge(self, sig):
-        """Host signal -> (mspec (T, 24), loge (T,), T) on ``self.device``."""
+    def mspec_loge(self, sig, keep_pcm=False):
+        """Host signal -> (mspec (T, 24), loge (T,), T) on ``self.device``.
+
+        :param keep_pcm: also return the uploaded signal when it is int16
+            (else None), as a fourth item: the VBx features of the VFS
+            scorer reuse the VAD's upload (``dsp.vbx.features_from_pcm``).
+        """
         x = torch.from_numpy(_host_signal(sig)).to(self.device)
         mspec, loge = sidekit_features(x, self.consts)
+        if keep_pcm:
+            return (mspec, loge, mspec.shape[0],
+                    x if x.dtype == torch.int16 else None)
         return mspec, loge, mspec.shape[0]
 
     def group_feats(self, raw, k):

@@ -33,12 +33,16 @@ Guarantees and costs:
   chunk's features are computed when its group's samples, plus the
   2*HOP lookahead, have been fed, exactly like the offline grouping.
 
-``OnlineVFS`` scores the same way on its buffered-prefix path: features are
-recomputed on the grown prefix once ``ISS_ONLINE_VFS_BATCH`` new windows
-can be embedded, each window is embedded once, and ``finalize()`` is
-``vfs.score_signal`` of everything fed.  The JAX package's int16 path
-(``VbxPcmStreamOnline``, incremental blocked VBx features) waits for the
-int16 VBx grid, which is not ported.
+``OnlineVFS`` scores the same way.  An int16 stream on the int16 VBx grid
+(``dsp.vbx.vbx_i16_enabled``: a CUDA device) feeds a
+``VbxPcmStreamOnline``, whose blocks are final as the stream passes them,
+and keeps no PCM past the first 400 samples; ``finalize()`` reassembles
+``vfs.score_signal``'s result from the embeddings already computed plus
+one catch-up batch.  Float streams, and the f32 path (the CPU), keep
+the buffered prefix: features are recomputed on the grown prefix once
+``ISS_ONLINE_VFS_BATCH`` new windows can be embedded, each window is
+embedded once, and ``finalize()`` is ``vfs.score_signal`` of everything
+fed.
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ from .annotations import SpeechTimeline
 from .audio import wav as _wav
 from .dsp.fe_kernel import GROUP_CHUNKS
 from .dsp.sidekit import CHUNK, HOP, frame_count
-from .dsp.vbx import LC, RC
-from .vfs import STEP, WINLEN
+from .dsp import vbx
+from .dsp.vbx import LC, RC, VbxFrontend, VbxPcmStreamOnline
+from .vfs import STEP, WINLEN, TorchResnetExtractor
 
 _LOG_ZERO = float(np.log(1e-200))
 
@@ -506,9 +511,16 @@ class OnlineVFS:
     canonical scoring on the full signal, ``vfs.score_signal(<everything
     fed>)``.  Embeddings are incremental: a window is embedded ONCE, as
     soon as its features are final, and cached for every later
-    provisional score.  Features are recomputed on the grown prefix only
-    when at least ``ISS_ONLINE_VFS_BATCH`` (default 32) new windows are
-    embeddable; the raw PCM is kept for the finalize.
+    provisional score, once at least ``ISS_ONLINE_VFS_BATCH`` (default
+    32) new windows are embeddable.
+
+    Features: an int16 stream on the int16 VBx grid runs through a
+    ``VbxPcmStreamOnline`` (blocks computed as the stream passes their
+    halo'd extent, equal to the finished signal's bit for bit), the raw
+    PCM dropped once 400 samples have arrived; ``finalize()`` reassembles
+    the offline result from the cached embeddings plus one catch-up batch
+    (the extractor's ``embed=``).  Other streams keep the buffered
+    prefix: features recomputed on it, the raw PCM kept for the finalize.
     """
 
     TAIL_GUARD = 4     # frontier frames the mirror tail may still change
@@ -525,6 +537,8 @@ class OnlineVFS:
         self._fea_len = -1
         self._cur = None        # (scoring inputs key, result) cache
         self._finalized = None
+        self._stream = None     # VbxPcmStreamOnline (the int16 grid)
+        self._use_stream = None
         self._min_new = max(1, int(os.environ.get("ISS_ONLINE_VFS_BATCH",
                                                   "32")))
 
@@ -541,12 +555,37 @@ class OnlineVFS:
         kind = np.int16 if pcm.dtype == np.int16 else np.float32
         if self._dtype is None:
             self._dtype = kind
+            self._use_stream = kind == np.int16 and self._stream_eligible()
+            if self._use_stream:
+                self._stream = VbxPcmStreamOnline(self.vfs.features)
         elif kind != self._dtype:
             raise TypeError("feed dtype changed mid-stream")
-        self._parts.append(np.array(pcm, dtype=self._dtype, copy=True))
+        if self._use_stream:
+            self._stream.append(pcm)
+            # the PCM is kept only until one analysis window exists (a
+            # shorter finalize takes the offline path and its errors);
+            # past that the stream owns the samples
+            if self._total < 400:
+                self._parts.append(np.array(pcm, dtype=self._dtype,
+                                            copy=True))
+            elif self._parts:
+                self._parts = []
+        else:
+            self._parts.append(np.array(pcm, dtype=self._dtype, copy=True))
         self._total += len(pcm)
         self.vad_online.feed(pcm)
         return self
+
+    def _stream_eligible(self):
+        """Whether the int16 VBx grid serves this scorer incrementally."""
+        return (vbx.vbx_i16_enabled(self.vfs.device)
+                and isinstance(self.vfs.features, VbxFrontend)
+                and isinstance(self.vfs.xvector_model, TorchResnetExtractor))
+
+    @property
+    def buffered_samples(self):
+        """Raw samples currently held."""
+        return sum(len(p) for p in self._parts)
 
     def _signal(self):
         return (np.concatenate(self._parts) if self._parts
@@ -583,7 +622,13 @@ class OnlineVFS:
         def seg_of(s):
             return (round(s / 100.0, 3), round(s / 100.0 + WINLEN / 100.0, 3))
 
-        starts = self._final_starts(self._frames_now())
+        if self._use_stream:
+            # every window behind the stream's final-feature frontier (the
+            # block grid already holds the CMVN context back)
+            fr = self._stream.frames_ready
+            starts = list(range(0, max(fr - WINLEN + 1, 0), STEP))
+        else:
+            starts = self._final_starts(self._frames_now())
         in_speech = [s for s in starts
                      if timeline.contains_point(
                          (seg_of(s)[0] + seg_of(s)[1]) / 2)]
@@ -591,15 +636,20 @@ class OnlineVFS:
         # batch the expensive part: embed only when enough NEW windows
         # accumulated (or none were ever embedded)
         if new and (len(new) >= self._min_new or not self._emb):
-            sig = self._signal()
-            if self._fea is None or len(sig) != self._fea_len:
-                signal64 = (sig.astype(np.float64) / 32768.0
-                            if self._dtype == np.int16
-                            else np.asarray(sig, np.float64))
-                self._fea = self.vfs.features.features(signal64)
-                self._fea_len = len(sig)
+            if self._use_stream:
+                # final rows of the stream's features: no recompute
+                fea = self._stream.fea_buffer
+            else:
+                sig = self._signal()
+                if self._fea is None or len(sig) != self._fea_len:
+                    signal64 = (sig.astype(np.float64) / 32768.0
+                                if self._dtype == np.int16
+                                else np.asarray(sig, np.float64))
+                    self._fea = self.vfs.features.features(signal64)
+                    self._fea_len = len(sig)
+                fea = self._fea
             embs = self.vfs.xvector_model.embeddings_from_features(
-                self._fea, np.asarray(new, np.int64))
+                fea, np.asarray(new, np.int64))
             for s, e in zip(new, embs):
                 # NaN embeddings recorded as None: never retained, never
                 # re-embedded (the canonical extractor drops them too)
@@ -622,7 +672,32 @@ class OnlineVFS:
             return self._finalized
         if self._total == 0:
             self._finalized = (None, 0.0, 0)
+        elif self._use_stream and self._total >= 400:
+            self._finalized = self._finalize_stream()
         else:
             self._finalized = self.vfs.score_signal(self._signal(),
                                                     self.basename)
         return self._finalized
+
+    def _finalize_stream(self):
+        """The offline result from the stream's state: its features equal
+        the offline ones bit for bit; cached embeddings are reused and the
+        windows missing embed in one catch-up batch."""
+        timeline = SpeechTimeline.from_vad(self.vad_online.finalize())
+        speech_duration = timeline.total_duration()
+        if not speech_duration:
+            return None, speech_duration, 0
+        fea = self._stream.finalize()
+        xm = self.vfs.xvector_model
+
+        def cache_then_catch_up(fea_final, needed):
+            # a window cached as NaN is embedded again, as offline
+            done = {s: e for s, e in self._emb.items() if e is not None}
+            missing = [s for s in needed if s not in done]
+            done.update(zip(missing, xm.embeddings_from_features(
+                fea_final, np.asarray(missing, np.int64))))
+            return [done[s] for s in needed]
+
+        x_vectors = xm(self.basename, fea, self._total / 16000.0,
+                       timeline=timeline, embed=cache_then_catch_up)
+        return self.vfs._score_xvectors(x_vectors, timeline, speech_duration)

@@ -1,12 +1,13 @@
 """Voice Femininity Scoring — the VBx x-vector pipeline, PyTorch port.
 
 Same contract as ``inaspeechsegmenter_tpu/vfs.py`` (reference
-vbx_segmenter.py:92-202): ``VoiceFemininityScoring(gd_model_criteria)(fpath)``
-returns ``(score | None, speech_duration, n_retained_xvectors)`` with the
-same VAD-overlap filtering (midpoint in speech, overlap >= threshold, >= 50%
-back-fill) and window bookkeeping (144-frame windows, step 24, tail >= 10
-frames, x-vectors scaled x10, NaN windows dropped), plus an explicit
-``device`` (``cuda`` by default; no CUDA device raises).
+vbx_segmenter.py:92-202): ``VoiceFemininityScoring(gd_model_criteria,
+backend)(fpath)`` returns ``(score | None, speech_duration,
+n_retained_xvectors)`` with the same VAD-overlap filtering (midpoint in
+speech, overlap >= threshold, >= 50% back-fill) and window bookkeeping
+(144-frame windows, step 24, tail >= 10 frames, x-vectors scaled x10, NaN
+windows dropped), plus the keyword-only ``device`` (``cuda`` by default;
+no CUDA device raises) and ``model_dir``.
 
 The VAD is the port's ``Segmenter("smn", detect_gender=False)``, so a VFS
 run launches the SIDEKIT feature and Viterbi kernels.  VBx features,
@@ -18,11 +19,17 @@ ffmpeg, and the MLP's registry resolution (released ``.hdf5`` or its
 converted npz), are the Segmenter's.  Full windows are gathered on the
 device from the feature tensor and run through the ResNet in sub-batches
 of ``ISS_XVEC_BATCH`` (default 256); the ragged tail window runs through
-the masked forward, or unpadded with ``ISS_XVEC_TAIL=exact``.
+the masked forward, or unpadded with ``ISS_XVEC_TAIL=exact``.  The last
+sub-batch is padded to a power-of-two bucket (``_xvec_layout``), so every
+forward runs at one of a few batch sizes.
 
-``batch_score`` prefetches the next files' VAD and VBx features on
-producer threads; ``online.OnlineVFS`` scores a growing recording.  Not
-ported: the overlapped speculative scorer and ``mesh=``.
+On a CUDA device the VBx features take the int16 grid
+(``dsp.vbx.vbx_i16_enabled``): an int16 signal's features come from the
+VAD's own upload (``Segmenter.segment_signal(return_pcm=True)``), with no
+host work of their own.  ``batch_score`` prefetches the next files' VAD
+and VBx features on producer threads; ``online.OnlineVFS`` scores a
+growing recording.  Not ported: the overlapped speculative scorer and
+``mesh=`` (the multi-GPU engine's).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 
 from .annotations import SpeechTimeline
 from .audio.io import check_ffmpeg, media2sig16kmono
+from .dsp import vbx
 from .dsp.vbx import VbxFrontend
 from .models.registry import load_patch_model, resolve_xvector_weights
 from .models.resnet import ResNet101XVector, pooled_freq
@@ -124,23 +132,56 @@ class TorchResnetExtractor:
             self.net.load_jax_params(params)
         self.net = self.net.to(self.device).eval()
 
+    @staticmethod
+    def _xvec_layout():
+        """(sub, buckets): the sub-batch size ``ISS_XVEC_BATCH`` (default
+        256) and the ladder of batch sizes a forward runs at, the powers of
+        two capped at ``sub``.  Every bucket maps to itself, so a padded
+        group is run as it is."""
+        sub = max(1, int(os.environ.get("ISS_XVEC_BATCH", "256")))
+        buckets = sorted({min(1 << p, sub)
+                          for p in range((sub - 1).bit_length() + 1)})
+        return sub, buckets
+
+    @torch.no_grad()
+    def get_embeddings_batch(self, windows):
+        """(B, 64, T) stacked windows (array or tensor) -> (B, 256) numpy,
+        in sub-batches of ``sub``, the last zero-padded to its bucket.
+        BatchNorm uses running statistics and pooling is per window, so
+        neither the split nor the padding changes a window's embedding
+        (beyond the convolution algorithm cuDNN or oneDNN picks for the
+        batch size)."""
+        b = len(windows)
+        if b == 0:
+            return np.zeros((0, self.net.embed_dim), np.float32)
+        sub, buckets = self._xvec_layout()
+        w = torch.as_tensor(windows, dtype=torch.float32, device=self.device)
+        outs = []
+        for g in range(0, b, sub):
+            k = min(sub, b - g)
+            bucket = next(x for x in buckets if x >= k)
+            part = w[g:g + k]
+            if bucket != k:
+                part = torch.cat([part, part.new_zeros(
+                    (bucket - k,) + tuple(part.shape[1:]))])
+            outs.append(self.net(part)[:k])
+        return torch.cat(outs).cpu().numpy()
+
     @torch.no_grad()
     def embeddings_from_features(self, fea, starts):
         """Gather the (len(starts), 64, WINLEN) windows from the on-device
-        feature tensor and embed them in ``ISS_XVEC_BATCH`` sub-batches
-        -> (len(starts), 256) numpy.  BatchNorm uses running statistics and
-        pooling is per sample, so sub-batching does not change a window's
-        embedding."""
-        if len(starts) == 0:
+        feature tensor and embed them -> (len(starts), 256) numpy.  Windows
+        are gathered one sub-batch at a time, which bounds the memory, and
+        ``get_embeddings_batch`` pads the last to its bucket."""
+        nw = len(starts)
+        if nw == 0:
             return np.zeros((0, self.net.embed_dim), np.float32)
+        sub, _ = self._xvec_layout()
         st = torch.as_tensor(np.asarray(starts, np.int64), device=fea.device)
         offs = torch.arange(WINLEN, device=fea.device)
-        sub = max(1, int(os.environ.get("ISS_XVEC_BATCH", "256")))
-        outs = []
-        for g in range(0, len(starts), sub):
-            idx = st[g:g + sub, None] + offs[None, :]
-            outs.append(self.net(fea[idx].transpose(1, 2)))
-        return torch.cat(outs).cpu().numpy()
+        return np.concatenate([self.get_embeddings_batch(
+            fea[st[g:g + sub, None] + offs[None, :]].transpose(1, 2))
+            for g in range(0, nw, sub)])
 
     @torch.no_grad()
     def get_embedding(self, fea):
@@ -159,18 +200,22 @@ class TorchResnetExtractor:
                        torch.tensor([length], device=fea.device))
         return out[0].cpu().numpy()
 
-    def __call__(self, basename, fea, duration, timeline=None):
+    def __call__(self, basename, fea, duration, timeline=None, embed=None):
         """Reference-compatible VBxExtractor.__call__
         (vbx_segmenter.py:217-246): returns [(key, (seg_start, seg_end),
         xvector*10)].
 
         ``timeline``: optional ``SpeechTimeline``; windows whose midpoint is
         not in speech are skipped before the ResNet runs (``apply_vad``
-        would discard them anyway; the JAX package's default
-        ``ISS_XVEC_SPEECH_ONLY=1``).
+        would discard them anyway).
+        ``embed(fea, starts) -> (len(starts), 256)``: where the full
+        windows' raw embeddings come from (default
+        ``embeddings_from_features``; ``OnlineVFS.finalize`` hands its
+        cache plus a catch-up batch).
         """
         fea = torch.as_tensor(fea, dtype=torch.float32, device=self.device)
         speech_only = timeline is not None
+        embed = embed or self.embeddings_from_features
 
         def midpoint_in_speech(seg):
             # the exact midpoint apply_vad will test (same rounding)
@@ -185,7 +230,7 @@ class TorchResnetExtractor:
             kept = [i for i, seg in enumerate(segs) if midpoint_in_speech(seg)]
         else:
             kept = list(range(len(starts)))
-        embs = self.embeddings_from_features(fea, [starts[i] for i in kept])
+        embs = embed(fea, [starts[i] for i in kept])
         for i, emb in zip(kept, embs):
             key = f"{basename}_{starts[i]:08}-{starts[i] + WINLEN:08}"
             if np.isnan(emb).any():
@@ -215,22 +260,37 @@ class VoiceFemininityScoring:
     """Voice femininity scoring with the reference constructor contract
     (vbx_segmenter.py:97-127), on ``device``."""
 
-    def __init__(self, gd_model_criteria="bgc", ffmpeg="ffmpeg",
-                 device="cuda", model_dir=None, xvector_params=None,
-                 xvector_net=None, allow_download=True):
-        """:param ffmpeg: the ffmpeg binary decoding any media, or ``None``
-            (16 kHz WAV input only).
-        :param model_dir: the first model directory searched (see
-            ``models.registry``).
+    def __init__(self, gd_model_criteria="bgc", backend="jax",
+                 allow_download=True, xvector_params=None, xvector_net=None,
+                 ffmpeg="ffmpeg", mesh=None, *, device="cuda",
+                 model_dir=None):
+        """The JAX package's parameters in its order, plus the keyword-only
+        ``device`` and ``model_dir``.
+
+        :param backend: ``jax``, ``onnx`` or ``pytorch``, checked as the
+            JAX package does and otherwise ignored (the port runs PyTorch).
+        :param allow_download: fetch a missing MLP from its release URL.
         :param xvector_params: a JAX-package ResNet parameter pytree.
         :param xvector_net: a ``ResNetXVector`` module (default ResNet101).
-        :param allow_download: fetch a missing MLP from its release URL.
+        :param ffmpeg: the ffmpeg binary decoding any media, or ``None``
+            (WAV input only).
+        :param mesh: must be None: sharding windows over several GPUs is
+            the multi-GPU engine's, not ported yet.
+        :param model_dir: the first model directory searched (see
+            ``models.registry``).
 
         The process's TF32 flags are left alone: the ResNet, the MLP, the
         VAD CNN and the VBx features each run in their own tier's scope,
         which holds a lock, also on ``batch_score``'s producer threads
         (``models.layers.precision_scope``).
         """
+        if backend not in ("jax", "onnx", "pytorch"):
+            raise ValueError("backend must be 'jax', 'onnx' or 'pytorch' "
+                             f"(accepted for API parity), got {backend!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= shards x-vector windows over several devices: that is "
+                "the multi-GPU engine, not ported yet (ROADMAP.md)")
         if gd_model_criteria not in ("bgc", "vfp"):
             raise ValueError("Gender detection model criteria must be 'bgc' "
                              f"or 'vfp', got {gd_model_criteria!r}")
@@ -247,9 +307,8 @@ class VoiceFemininityScoring:
         self.gender_detection_mlp_model = load_patch_model(
             gd_model, model_dir, allow_download).to(self.device).eval()
         self.vad = Segmenter(vad_engine="smn", detect_gender=False,
-                             ffmpeg=ffmpeg, device=self.device,
-                             model_dir=model_dir,
-                             allow_download=allow_download)
+                             ffmpeg=ffmpeg, allow_download=allow_download,
+                             device=self.device, model_dir=model_dir)
         self.features = VbxFrontend(self.device)
 
     def apply_vad(self, xvectors, timeline: SpeechTimeline):
@@ -279,28 +338,39 @@ class VoiceFemininityScoring:
             # reference duck-type contract: `vad` is CALLED with the path
             # (vbx_segmenter.py:164), so a plain callable can replace it
             vad_seg = self.vad(fpath)
-            return self._finish_prepare(sig, signal, basename, vad_seg)
+            return self._finish_prepare(sig, signal, None, basename, vad_seg)
         return self._prepare_signal(sig, basename, signal64=signal,
                                     medianame=fpath)
 
     def _prepare_signal(self, sig, basename="<signal>", signal64=None,
                         medianame="<signal>"):
-        """VAD + VBx features for an already-decoded 16 kHz mono signal."""
+        """VAD + VBx features for an already-decoded 16 kHz mono signal.
+        An int16 signal's upload for the VAD is kept for the features."""
         if signal64 is None and sig.dtype != np.int16:
             # a float signal IS the feature signal (no int16 scaling)
             signal64 = np.asarray(sig, np.float64)
-        vad_seg = self.vad.segment_signal(sig, 0, medianame)
-        return self._finish_prepare(sig, signal64, basename, vad_seg)
+        pcm = None
+        if sig.dtype == np.int16:
+            vad_seg, pcm = self.vad.segment_signal(sig, 0, medianame,
+                                                   return_pcm=True)
+        else:
+            vad_seg = self.vad.segment_signal(sig, 0, medianame)
+        return self._finish_prepare(sig, signal64, pcm, basename, vad_seg)
 
-    def _finish_prepare(self, sig, signal, basename, vad_seg):
-        duration = len(sig) / SR
+    def _finish_prepare(self, sig, signal, pcm, basename, vad_seg):
+        n_samples = len(sig)
+        duration = n_samples / SR
         timeline = SpeechTimeline.from_vad(vad_seg)
         speech_duration = timeline.total_duration()
         fea = None
         if speech_duration:
-            if signal is None:
-                signal = sig.astype(np.float64) / 32768.0
-            fea = self.features.features(signal)
+            if (pcm is not None and n_samples >= 400
+                    and vbx.vbx_i16_enabled(self.device)):
+                fea = self.features.features_from_pcm(pcm, n_samples)
+            else:
+                if signal is None:
+                    signal = sig.astype(np.float64) / 32768.0
+                fea = self.features.features(signal)
         return basename, fea, timeline, duration, speech_duration
 
     def score_signal(self, sig, basename="<signal>"):

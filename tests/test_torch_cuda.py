@@ -9,12 +9,19 @@ conftest cannot load there):
 Features: finite masks equal, mspec within rtol/atol 1e-4, loge within
 1e-5 (an FFT against the plain dense DFT: float32 sums in another order).
 Viterbi: states bit-equal, including exact ties, -inf and NaN scores and
-emissions that never coalesce (which the kernel's serial walk finishes).
+emissions that never coalesce (which the kernel's serial walk finishes);
+the general-K kernel (K > 3, and K <= 3 through its own wrapper) bit-equal
+to the plain loop at K from 4 to 1,100, with resets, ties and NaN rows.
 
 The VFS path has no hand kernel; its cases hold the CUDA run of the plain
 PyTorch code (cuDNN / cuBLAS, TF32 off) against the CPU run: VBx features
-within ``dsp.vbx.device_atol(n_frames)``, tiny-ResNet embeddings within a relative L2
-error of 1e-4, and the end-to-end score equal.
+within ``dsp.vbx.device_atol(n_frames)`` on the f32 path and
+``device_atol(n_frames, blocked=True)`` on the int16 grid (whose streams
+are bit-equal to the whole-signal features on the card too), tiny-ResNet
+embeddings within a relative L2 error of 1e-4, the bucketed last
+sub-batch within 1e-4 of the ragged one, and the end-to-end score equal,
+also when ``batch_score``'s producer threads take the features from the
+VAD's upload.
 
 Real inputs: a Segmenter built from ``.hdf5`` files against the npz route
 (bit-equal weights, equal labels), and each CNN and x-vector precision
@@ -41,7 +48,8 @@ import torch
 from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
 from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
 from inaspeechsegmenter_tpu_torch.dsp import fe_kernel, sidekit
-from torch_parity_helpers import kernel_constant, speechlike, to_int16, voiced
+from torch_parity_helpers import (int16_grid_on_cpu, kernel_constant,
+                                  speechlike, to_int16, voiced)
 
 pytestmark = pytest.mark.cuda
 
@@ -180,8 +188,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fe_kernel.sidekit_features(torch.zeros(2000, device=dev)[::2],
                                    consts)
+    # more than 3 states go to the general-K kernel, which checks its own
     em = torch.zeros((10, 4), device=dev)
-    with pytest.raises(ValueError, match="1..3 states"):
+    with pytest.raises(ValueError, match="transition"):
+        tv.viterbi_scan(em, em, em, em)
+    em = torch.zeros((10, tv.K_GENERAL_MAX + 1), device=dev)
+    with pytest.raises(ValueError, match=f"1..{tv.K_GENERAL_MAX} states"):
         tv.viterbi_scan(em, em, em, em)
     em = torch.zeros((10, 2), device=dev)
     with pytest.raises(ValueError, match="reset"):
@@ -209,9 +221,12 @@ def test_segmenter_cuda_matches_cpu(dev, tmp_path):
 
 
 @pytest.mark.parametrize("seconds", [2.0, 20.0, 130.0])
-def test_vbx_features_cuda_matches_cpu(dev, seconds):
+def test_vbx_features_cuda_matches_cpu(dev, seconds, monkeypatch):
+    """The f32 path (the card's own is the int16 grid)."""
+    from inaspeechsegmenter_tpu_torch.dsp import vbx
     from inaspeechsegmenter_tpu_torch.dsp.vbx import VbxFrontend, device_atol
 
+    monkeypatch.setattr(vbx, "vbx_i16_enabled", lambda device: False)
     sig = to_int16(speechlike(seconds, seed=int(seconds),
                               silences=[(0.5, 1.2)])).astype(np.float64)
     sig /= 32768.0
@@ -243,8 +258,11 @@ def test_resnet_cuda_matches_cpu(dev, block):
         assert rel.max() <= 1e-4
 
 
-def test_vfs_cuda_matches_cpu(dev, tmp_path):
+def test_vfs_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    """Like with like: both devices on the int16 grid."""
     from inaspeechsegmenter_tpu_torch import VoiceFemininityScoring
+
+    int16_grid_on_cpu(monkeypatch)
     from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
     from inaspeechsegmenter_tpu_torch.models.synthetic import (
         install_synthetic_models)
@@ -514,6 +532,165 @@ def test_batch_score_at_another_tier_keeps_vad_and_features_exact(
         assert (got[0], got[3], got[4]) == (name, duration, speech)
         assert got[2].intervals == timeline.intervals
         assert torch.equal(got[1], fea)
+        want = vfs(wav)
+        assert open(out).read().splitlines()[1] == "%s\t%s\t%d" % (
+            "" if want[0] is None else repr(float(want[0])),
+            repr(float(want[1])), want[2])
+
+
+# -- the general-K Viterbi, the int16 VBx grid and the tail bucket ------------
+
+@pytest.mark.parametrize("K", [4, 5, 7, 8, 13, 30, 31, 32, 33, 64])
+@pytest.mark.parametrize("kind", ["random", "resets", "ties", "nan"])
+def test_viterbi_general_kernel_bit_equal(dev, K, kind):
+    args, want = _viterbi_case(K, kind, 2500, dev)
+    g0, k0 = tv.viterbi_scan_general.launches, tv.viterbi_scan.launches
+    got = tv.viterbi_scan(*args)
+    torch.cuda.synchronize()
+    assert tv.viterbi_scan_general.launches == g0 + 1
+    assert tv.viterbi_scan.launches == k0
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("K,T", [(1, 50), (2, 4000), (3, 4000), (205, 300),
+                                 (300, 200), (1100, 40), (30, 180_000)])
+def test_viterbi_general_kernel_other_shapes(dev, K, T):
+    """K <= 3 through the general wrapper; the transition matrix outside
+    shared memory (K > 204); two-byte pointers (K > 256); several states a
+    thread (K > 1024); the main path's length."""
+    args, want = _viterbi_case(K, "resets" if K > 1 else "random", T, dev)
+    got = tv.viterbi_scan_general(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_viterbi_decoding_on_the_card(dev):
+    """The reference API: K = 30 after the duplication, and K = 8 with
+    forbidden and mandatory frames and resets, equal to the CPU run."""
+    rng = np.random.default_rng(3)
+    for K, consecutive in ((3, 10), (8, None)):
+        T = 6000
+        em = np.log(rng.dirichlet(np.ones(K), T))
+        tr = np.log(rng.dirichlet(np.ones(K) * 3, K))
+        constraint = np.zeros((T, K), int)
+        constraint[rng.random((T, K)) < 0.05] = tv.VITERBI_CONSTRAINT_FORBIDDEN
+        constraint[rng.choice(T, 40, replace=False),
+                   rng.integers(0, K, 40)] = tv.VITERBI_CONSTRAINT_MANDATORY
+        kw = dict(consecutive=consecutive, constraint=constraint,
+                  reset=rng.random(T) < 0.01)
+        g0 = tv.viterbi_scan_general.launches
+        got = tv.viterbi_decoding(em, tr, device=dev, **kw)
+        assert tv.viterbi_scan_general.launches == g0 + 1
+        np.testing.assert_array_equal(
+            got, tv.viterbi_decoding(em, tr, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("seconds", [2.0, 20.0, 130.0])
+def test_vbx_int16_grid_cuda_matches_cpu(dev, seconds):
+    """The card's int16 grid against the CPU's, within the blocked bound;
+    on the card, a stream in pieces and the online stream equal the whole
+    signal's features bit for bit."""
+    from inaspeechsegmenter_tpu_torch.dsp.vbx import (
+        VBX_BLK, VbxFrontend, VbxPcmStream, VbxPcmStreamOnline, device_atol)
+
+    sig = to_int16(speechlike(seconds, seed=int(seconds) + 1,
+                              silences=[(0.5, 1.2)]))
+    fe = VbxFrontend(dev)
+    got = fe._features_i16(sig, len(sig))
+    want = VbxFrontend("cpu")._features_i16(sig, len(sig)).numpy()
+    assert got.device.type == "cuda" and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                               atol=device_atol(len(want), blocked=True))
+    stream = VbxPcmStream(fe, len(sig))
+    online = VbxPcmStreamOnline(fe)
+    for pos in range(0, len(sig), 123_457):
+        stream.append(sig[pos:pos + 123_457])
+        online.append(torch.from_numpy(sig[pos:pos + 123_457]).to(dev))
+        fr = online.frames_ready
+        assert torch.equal(online.fea_buffer[:fr], got[:fr])
+    assert torch.equal(stream.finish(), got)
+    assert torch.equal(online.finalize(), got)
+    if len(want) > VBX_BLK + 400:
+        assert fr >= VBX_BLK
+
+
+def test_tail_bucket_matches_ragged_forward(dev):
+    """All windows of a file with 256 + 190 windows: the last sub-batch
+    runs padded to 256, within 1e-4 relative L2 of the ragged forward."""
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+    from inaspeechsegmenter_tpu_torch.vfs import TorchResnetExtractor
+
+    net = ResNetXVector("bottleneck", (2, 2, 2, 2), 32, 64, 256)
+    xm = TorchResnetExtractor(net.init_params(seed=2), net, dev)
+    nw = 256 + 190
+    fea = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (144 + 24 * nw, 64)).astype(np.float32)).to(dev)
+    starts = [24 * i for i in range(nw)]
+    sizes = []
+    hook = xm.net.register_forward_pre_hook(
+        lambda mod, a: sizes.append(a[0].shape[0]))
+    try:
+        got = xm.embeddings_from_features(fea, starts)
+    finally:
+        hook.remove()
+    assert sizes == [256, 256]
+    idx = torch.tensor(starts[256:], device=dev)[:, None] + torch.arange(
+        144, device=dev)[None, :]
+    with torch.no_grad():
+        ragged = xm.net(fea[idx].transpose(1, 2)).cpu().numpy()
+    rel = (np.linalg.norm(got[256:] - ragged, axis=1)
+           / np.linalg.norm(ragged, axis=1))
+    assert rel.max() <= 1e-4
+
+
+def test_batch_score_shared_pcm_in_producer_threads(dev, small_models,
+                                                    tmp_path, monkeypatch):
+    """On the card the VBx features take the int16 grid: the producers of
+    ``batch_score`` compute each file's features from the VAD's own upload,
+    equal bit for bit to ``_features_i16`` of the same samples, and the
+    scores equal one call per file."""
+    import threading
+
+    from inaspeechsegmenter_tpu_torch import VoiceFemininityScoring
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+
+    monkeypatch.setenv("ISS_PREFETCH", "3")
+    net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
+    vfs = VoiceFemininityScoring("bgc", ffmpeg=None, device=dev,
+                                 model_dir=small_models, xvector_net=net,
+                                 xvector_params=net.init_params(seed=3),
+                                 allow_download=False)
+    calls = []
+    real = vfs.features.features_from_pcm
+
+    def spy(parts, n):
+        calls.append((threading.current_thread().name, parts[0].device.type,
+                      n))
+        return real(parts, n)
+
+    vfs.features.features_from_pcm = spy
+    sigs, wavs = [], []
+    for i, seconds in enumerate((30.0, 95.0, 20.0, 60.0, 35.0)):
+        sigs.append(to_int16(voiced(seconds, seed=50 + i,
+                                    silences=[(2.0, 2.6)])))
+        wavs.append(str(tmp_path / f"p{i}.wav"))
+        write_wav(wavs[-1], sigs[-1], 16000)
+    prepared, serial = {}, vfs._prepare
+
+    def recording(path):
+        prepared[path] = serial(path)
+        return prepared[path]
+
+    vfs._prepare = recording
+    outs = [str(tmp_path / "out" / f"p{i}.csv") for i in range(len(wavs))]
+    _, n_ok, _, _ = vfs.batch_score(wavs, outs)
+    assert n_ok == len(wavs)
+    assert sorted(n for _, _, n in calls) == sorted(len(s) for s in sigs)
+    assert {d for _, d, _ in calls} == {"cuda"}
+    assert any(name != threading.main_thread().name for name, _, _ in calls)
+    for sig, wav, out in zip(sigs, wavs, outs):
+        fea = prepared[wav][1]
+        assert torch.equal(fea, vfs.features._features_i16(sig, len(sig)))
         want = vfs(wav)
         assert open(out).read().splitlines()[1] == "%s\t%s\t%d" % (
             "" if want[0] is None else repr(float(want[0])),

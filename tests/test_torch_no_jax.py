@@ -70,6 +70,76 @@ print("NO-JAX-OK")
 """
 
 
+CODE_REFERENCE_API = r"""
+import os
+import sys
+sys.modules["h5py"] = None
+import numpy as np
+import torch
+import inaspeechsegmenter_tpu_torch as port
+from inaspeechsegmenter_tpu_torch import segmenter as tseg
+from inaspeechsegmenter_tpu_torch.audio import native
+from inaspeechsegmenter_tpu_torch.audio.io import media2sig16kmono
+from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+from inaspeechsegmenter_tpu_torch.decode.viterbi import viterbi_decoding
+from inaspeechsegmenter_tpu_torch.dsp import vbx, vbx_host
+from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+from inaspeechsegmenter_tpu_torch.models.synthetic import install_synthetic_models
+from inaspeechsegmenter_tpu_torch.utils.timing import StageTimers
+
+vbx.vbx_i16_enabled = lambda device: True       # the grid, also on the CPU
+install_synthetic_models("models", size="small")
+rng = np.random.default_rng(0)
+em = np.log(rng.dirichlet(np.ones(3), 200))
+states = viterbi_decoding(em, np.log(np.full((3, 3), 1 / 3)), consecutive=4,
+                          device="cpu")
+assert states.shape == (200,)
+sig = (rng.standard_normal(16000 * 5) * 3000).astype(np.int16)
+stage = tseg.SpeechMusicNoise(32, False, device="cpu", model_dir="models")
+seg = port.Segmenter("smn", False, None, device="cpu", model_dir="models")
+m = seg._sig2feats(sig)[0]
+lseg = stage(m, [("energy", 0, 100), ("noEnergy", 100, 250)])
+assert lseg[-1] == ("noEnergy", 100, 250), lseg
+assert seg.timers.summary()["features"]["calls"] == 1
+fe = vbx.VbxFrontend("cpu")
+whole = fe._features_i16(sig, len(sig))
+assert torch.equal(fe.features_from_pcm([torch.from_numpy(sig)], len(sig)),
+                   whole)
+vbx_host.get_features(sig / 32768.0)
+net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
+scorer = port.VoiceFemininityScoring("bgc", "jax", False,
+                                     net.init_params(seed=0), net, None,
+                                     device="cpu", model_dir="models")
+online = port.OnlineVFS(scorer)
+for pos in range(0, len(sig), 16000):
+    online.feed(sig[pos:pos + 16000])
+    online.current()
+assert online._use_stream and online.buffered_samples == 0
+assert online.finalize() == scorer.score_signal(sig)
+write_wav("x22.wav", sig[:22050], 22050)
+x = media2sig16kmono("x22.wav", ffmpeg=None, dtype="int16")
+assert abs(len(x) - 16000) <= 2 and native.available()
+assert native.library_path().startswith(os.environ["ISS_TORCH_BUILD_DIR"])
+bad = [m for m in ("jax", "jaxlib", "pandas", "h5py",
+                   "inaspeechsegmenter_tpu") if sys.modules.get(m)]
+assert not bad, bad
+print("NO-JAX-OK")
+"""
+
+
+def test_reference_api_int16_grid_and_resampler_without_jax(tmp_path):
+    """viterbi_decoding, DnnSegmenter.__call__, the timers, the int16 VBx
+    grid (VFS and OnlineVFS), vbx_host and the resampler's build, in a
+    process without jax."""
+    env = dict(os.environ, PYTHONPATH=REPO,
+               ISS_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    r = subprocess.run([sys.executable, "-c", CODE_REFERENCE_API],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO-JAX-OK" in r.stdout
+
+
 def test_port_runs_without_jax_pandas_h5py(tmp_path):
     """Segmentation, VFS, online segmentation and a Keras ``.hdf5`` model
     load in a process where importing h5py fails."""

@@ -13,10 +13,12 @@ seconds), commit indices, committed label ids, csv bytes and the
   boundaries) and suffix decodes happen within a few chunks.
 - ``finalize()`` equals the JAX ``finalize()`` and both packages'
   ``segment_signal`` (the port's is the fused path).
-- ``OnlineVFS`` (the tiny x-vector net of tests/test_torch_vfs.py, float32
-  feeds so that the JAX object takes its buffered path too): provisional
-  ``current()`` after every feed and ``finalize()`` equal the JAX object's,
-  and ``finalize()`` equals the port's ``score_signal``.
+- ``OnlineVFS`` (the tiny x-vector net of tests/test_torch_vfs.py):
+  float32 feeds take the buffered path on both sides, int16 feeds on the
+  int16 grid (``torch_parity_helpers.int16_grid_on_cpu``) the stream path
+  (``VbxPcmStreamOnline``, no PCM kept past 400 samples) on both;
+  provisional ``current()`` after every feed and ``finalize()`` equal the
+  JAX object's, and ``finalize()`` equals the port's ``score_signal``.
 """
 
 import functools
@@ -34,7 +36,8 @@ from inaspeechsegmenter_tpu_torch.audio.wav import WavFormatError, write_wav
 from inaspeechsegmenter_tpu_torch.dsp.sidekit import CHUNK, HOP
 from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
 from inaspeechsegmenter_tpu_torch.online import follow_wav
-from torch_parity_helpers import speechlike, to_int16, voiced
+from torch_parity_helpers import (int16_grid_on_cpu, speechlike, to_int16,
+                                  voiced)
 
 TINY = ("bottleneck", (1, 1, 1, 1), 8, 64, 256)
 FMT = struct.pack("<HHIIHH", 1, 1, 16000, 32000, 2, 16)
@@ -380,6 +383,37 @@ def test_online_vfs_matches_jax(port_vfs, jax_vfs, jax_reference_path):
     with pytest.raises(RuntimeError, match="finalize"):
         port.feed(sig[:100])
     assert OnlineVFS(port_vfs).finalize() == (None, 0.0, 0)
+
+
+def test_online_vfs_int16_stream_matches_jax(port_vfs, jax_vfs,
+                                             monkeypatch):
+    """The int16 grid on both sides: features from the online stream,
+    cached embeddings reused by ``finalize()``."""
+    from inaspeechsegmenter_tpu import OnlineVFS as JaxOnlineVFS
+
+    monkeypatch.setenv("ISS_VFS_OVERLAP", "0")
+    int16_grid_on_cpu(monkeypatch)
+    sig = to_int16(voiced(95.0, seed=5, silences=[(12.0, 13.0),
+                                                  (60.0, 61.5)]))
+    port, jx = OnlineVFS(port_vfs, "live"), JaxOnlineVFS(jax_vfs, "live")
+    bounds = [0, 100, 450] + list(range(16000 * 15, len(sig), 16000 * 15))
+    provisional = []
+    for a, b in zip(bounds, bounds[1:] + [len(sig)]):
+        port.feed(sig[a:b])
+        jx.feed(sig[a:b])
+        assert port._use_stream and jx._use_stream
+        # the raw PCM is dropped once 400 samples have arrived
+        assert port.buffered_samples == (b if a < 400 else 0)
+        assert len(port._parts) == len(jx._parts)
+        got = port.current()
+        assert got == jx.current()
+        provisional.append(got)
+    assert port._stream.frames_ready == 8192
+    assert any(p[2] > 0 for p in provisional)    # windows were embedded
+    n_cached = len(port._emb)
+    got = port.finalize()
+    assert got == jx.finalize() == port_vfs.score_signal(sig, "live")
+    assert got[0] is not None and got[2] > n_cached > 0
 
 
 def test_cli_vfs_follow(port_vfs, synthetic_model_dir, xparams, tmp_path,

@@ -29,7 +29,7 @@ from inaspeechsegmenter_tpu_torch import vfs as tvfs
 from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
 from inaspeechsegmenter_tpu_torch.models import registry
 from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
-from torch_parity_helpers import to_int16, voiced
+from torch_parity_helpers import int16_grid_on_cpu, to_int16, voiced
 
 TINY = ("bottleneck", (1, 1, 1, 1), 8, 64, 256)
 
@@ -332,3 +332,95 @@ def test_cuda_device_without_card_raises(synthetic_model_dir, xparams):
                                model_dir=synthetic_model_dir,
                                xvector_net=ResNetXVector(*TINY),
                                xvector_params=xparams)
+
+
+# -- the int16 VBx grid, the tail bucket, the extractor's embed= -------------
+
+def test_int16_grid_end_to_end_matches_jax(port_vfs, jax_vfs, mix_wav,
+                                           monkeypatch):
+    """Both packages on their int16 VBx path (the JAX package's serial
+    path, ``ISS_VFS_OVERLAP=0``): the port's features come from the VAD's
+    own upload, and the result tuple is equal."""
+    from inaspeechsegmenter_tpu_torch.dsp.vbx import device_atol
+
+    int16_grid_on_cpu(monkeypatch)
+    path, sig = mix_wav
+    calls = []
+    real = port_vfs.features.features_from_pcm
+    monkeypatch.setattr(port_vfs.features, "features_from_pcm",
+                        lambda parts, n: calls.append(
+                            (len(parts), parts[0].dtype, n)) or real(parts, n))
+    got = port_vfs(path)
+    assert calls == [(1, torch.int16, len(sig))]
+    assert got == jax_vfs(path)
+    assert got[0] is not None and got[2] > 0
+    assert port_vfs.score_signal(sig, "mix20") == got
+    fea_t = port_vfs._prepare(path)[1]
+    fea_j = jax_vfs._prepare(path)[1]
+    # tones: see test_end_to_end_matches_jax (5e-3 there on the f32 path)
+    np.testing.assert_allclose(fea_t.numpy(), np.asarray(fea_j), rtol=0,
+                               atol=5e-3 + device_atol(len(fea_t), True))
+    # a float signal takes the int16 grid through features()
+    assert port_vfs.score_signal(sig.astype(np.float32) / 32768.0) == got
+
+
+@pytest.mark.parametrize("nw_of", [lambda s: 1, lambda s: s - 1,
+                                   lambda s: s, lambda s: s + 1,
+                                   lambda s: 2 * s + 3])
+def test_tail_bucket_forward_sizes_and_embeddings(xparams, monkeypatch,
+                                                  nw_of):
+    """Every forward runs at a ladder size (the powers of two capped at
+    ``ISS_XVEC_BATCH``), and the padding changes no embedding (1e-5, as
+    for the sub-batch split)."""
+    monkeypatch.setenv("ISS_XVEC_BATCH", "8")
+    xm = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu")
+    sub, buckets = xm._xvec_layout()
+    assert (sub, buckets) == (8, [1, 2, 4, 8])
+    nw = nw_of(sub)
+    fea = torch.from_numpy(np.random.default_rng(nw).standard_normal(
+        (144 + 24 * nw, 64)).astype(np.float32))
+    starts = [24 * i for i in range(nw)][::-1]
+    with torch.no_grad():
+        idx = torch.tensor(starts)[:, None] + torch.arange(144)[None, :]
+        want = xm.net(fea[idx].transpose(1, 2)).numpy()
+    sizes = []
+    hook = xm.net.register_forward_pre_hook(
+        lambda mod, args: sizes.append(args[0].shape[0]))
+    try:
+        got = xm.embeddings_from_features(fea, starts)
+    finally:
+        hook.remove()
+    assert got.shape == (nw, 256)
+    assert set(sizes) <= set(buckets) and sum(sizes) >= nw
+    full, tail = divmod(nw, sub)
+    assert sizes == [sub] * full + ([next(b for b in buckets if b >= tail)]
+                                    if tail else [])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the (B, 64, T) batch entry takes the same ladder
+    np.testing.assert_allclose(xm.get_embeddings_batch(
+        fea[idx].transpose(1, 2)), want, rtol=1e-5, atol=1e-5)
+    assert xm.get_embeddings_batch(np.zeros((0, 64, 144))).shape == (0, 256)
+
+
+def test_extractor_embed_callable(port_vfs, mix_wav):
+    """``embed=`` supplies the full windows' raw embeddings (as
+    ``OnlineVFS.finalize`` does from its cache): it is asked for the speech
+    windows only, and the same embeddings give the same x-vectors."""
+    path, _ = mix_wav
+    _, fea, timeline, duration, _ = port_vfs._prepare(path)
+    xm = port_vfs.xvector_model
+    want = xm("mix20", fea, duration, timeline=timeline)
+    asked = []
+
+    def embed(f, starts):
+        asked.extend(starts)
+        return list(xm.embeddings_from_features(f, starts))
+
+    got = xm("mix20", fea, duration, timeline=timeline, embed=embed)
+    assert [(k, seg) for k, seg, _ in got] == [(k, seg) for k, seg, _ in want]
+    for (_, _, x), (_, _, y) in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+    n_frames = fea.shape[0]
+    every = range(0, n_frames - 144, 24)
+    assert 0 < len(asked) < len(every) and set(asked) <= set(every)
+    assert all(timeline.contains_point((s + 72) / 100.0) for s in asked)

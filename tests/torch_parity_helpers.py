@@ -67,6 +67,16 @@ def to_int16(sig):
     return np.clip(np.rint(sig * 32768.0), -32768, 32767).astype(np.int16)
 
 
+def int16_grid_on_cpu(monkeypatch):
+    """Both packages on their int16 VBx grid on the CPU: the JAX package
+    through its ``ISS_VBX_UPLOAD``, the port, which takes the grid on a
+    CUDA device only, through ``dsp.vbx.vbx_i16_enabled``."""
+    from inaspeechsegmenter_tpu_torch.dsp import vbx
+
+    monkeypatch.setenv("ISS_VBX_UPLOAD", "int16")
+    monkeypatch.setattr(vbx, "vbx_i16_enabled", lambda device: True)
+
+
 def write_h5(path, datasets=(), attrs=()):
     """Write an HDF5 file with numpy alone: superblock v0, symbol-table
     groups, contiguous datasets, numeric and fixed-length string
