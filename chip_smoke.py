@@ -100,7 +100,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    ``viterbi_decoding`` (``consecutive=10`` on 3 states, K = 30, and K = 8
    with forbidden and mandatory frames and resets, T = 180,000, states
    equal to the plain run), then the kernel alone against its plain
-   version (ms, plain ms, bound); (e) ``DnnSegmenter.__call__`` of the smn
+   version on three inputs at T = 180,000 (the K = 30 expansion, which
+   never converges; the K = 8 constrained decode's kernel inputs; a random
+   dense K = 30 decode): states equal, ms, plain ms, passes, walked
+   chunks, the device clock's part times and bound of each; (e) ``DnnSegmenter.__call__`` of the smn
    and gender stages on the 60 s mix, cuda against cpu (at most 0.1% of
    frames differing; whether the lseg are equal is printed); (f) a 44.1
    kHz PCM16 WAV with ``ffmpeg=None`` through the native resampler (built
@@ -1592,13 +1595,16 @@ def viterbi_general_bound(T, K):
                  T * (2 * K * K + 2 * K))
 
 
-def phase_general_viterbi(torch, dev):
-    """6(d): the general-K kernel through ``viterbi_decoding``, against the
-    plain loop.  -> the kernel's JSON entry and the API run's launches."""
+def general_viterbi_inputs(T):
+    """6(d)'s seeded decodes -> (the ``viterbi_decoding`` calls: name ->
+    (emission, transition, keywords); the kernel's own inputs: name ->
+    (emission, transition, initial, reset) as numpy arrays).  The kernel's
+    inputs are the K = 30 expansion of the first call (it never converges:
+    the serial walk), the K = 8 constrained call's emissions after its
+    constraints (it converges) and a random dense K = 30 decode."""
     from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
     from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
 
-    T = VITERBI_T
     rng = np.random.default_rng(66)
     em3 = np.log(rng.dirichlet(np.ones(3), T))
     tr3 = diag_trans_exp(0.7, 3)
@@ -1610,11 +1616,57 @@ def phase_general_viterbi(torch, dev):
     con[rng.choice(T, 500, replace=False), rng.integers(0, K8, 500)] = \
         tv.VITERBI_CONSTRAINT_MANDATORY
     reset8 = rng.random(T) < 0.001
-    cases = {f"consecutive={GENERAL_K_CONSECUTIVE} on 3 states (K="
+    calls = {f"consecutive={GENERAL_K_CONSECUTIVE} on 3 states (K="
              f"{3 * GENERAL_K_CONSECUTIVE})":
              (em3, tr3, dict(consecutive=GENERAL_K_CONSECUTIVE)),
              f"K={K8}, forbidden and mandatory frames, resets":
              (em8, tr8, dict(constraint=con, reset=reset8))}
+    em, tr, ini, _, _ = tv._expand_consecutive(
+        em3.astype(np.float32), tr3, np.log(np.ones(3) / 3),
+        np.zeros((T, 3)), np.full(3, GENERAL_K_CONSECUTIVE))
+    reset = np.zeros(T, bool)
+    reset[0] = True
+    em_c = em8.astype(np.float32)
+    em_c[con == tv.VITERBI_CONSTRAINT_FORBIDDEN] = tv.LOG_ZERO
+    for t, k in zip(*np.where(con == tv.VITERBI_CONSTRAINT_MANDATORY)):
+        keep = em_c[t, k]
+        em_c[t] = tv.LOG_ZERO
+        em_c[t, k] = keep
+    reset_c = reset8.copy()
+    reset_c[0] = True
+    K_dense = 3 * GENERAL_K_CONSECUTIVE
+    rng = np.random.default_rng(67)
+    reset_d = rng.random(T) < 0.001
+    reset_d[0] = True
+    kernel = {
+        f"consecutive={GENERAL_K_CONSECUTIVE} (K={em.shape[1]})":
+            (em, tr, ini, reset),
+        f"K={K8} constrained": (em_c, tr8, np.full(K8, np.log(1.0 / K8)),
+                                reset_c),
+        f"K={K_dense} random dense": (
+            np.log(rng.dirichlet(np.ones(K_dense), T)),
+            np.log(rng.dirichlet(np.ones(K_dense) * 3, K_dense)),
+            np.full(K_dense, np.log(1.0 / K_dense)), reset_d)}
+    kernel = {name: tuple(np.ascontiguousarray(
+        a, bool if a.dtype == bool else np.float32) for a in arrays)
+        for name, arrays in kernel.items()}
+    return calls, kernel
+
+
+def general_parts_ms(ctl):
+    """The general-K launch's part times from its ctl words (ms from the
+    launch's start to the end of: the passes, the walk, the maps, the
+    summaries, the chain of summaries)."""
+    return [int(x) / 1e6 for x in ctl[8:13].tolist()]
+
+
+def phase_general_viterbi(torch, dev):
+    """6(d): the general-K kernel through ``viterbi_decoding``, against the
+    plain loop.  -> the kernel's JSON entry and the API run's launches."""
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+
+    T = VITERBI_T
+    cases, inputs = general_viterbi_inputs(T)
     reset_kernel_counts()
     got = {name: tv.viterbi_decoding(em, tr, device=dev, **kw)
            for name, (em, tr, kw) in cases.items()}
@@ -1631,38 +1683,44 @@ def phase_general_viterbi(torch, dev):
         log(f"[viterbi-k] viterbi_decoding {name}, T={T}: {n_diff} states "
             f"differ from the plain run on the CPU ({plain_api_ms!r} ms)")
         check(n_diff == 0, f"viterbi_decoding {name}: states differ")
-    # the kernel alone on the K = 30 expanded decode, against its plain
-    # version on the same card tensors
-    em, tr, ini, _, _ = tv._expand_consecutive(
-        em3.astype(np.float32), tr3, np.log(np.ones(3) / 3),
-        np.zeros((T, 3)), np.full(3, GENERAL_K_CONSECUTIVE))
-    K = em.shape[1]
-    reset = np.zeros(T, bool)
-    reset[0] = True
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-        np.asarray(em, np.float32), np.asarray(tr, np.float32),
-        np.asarray(ini, np.float32), reset)]
-    sk = tv.viterbi_scan_general(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sp = tv.viterbi_scan_plain(*args)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    n_diff = int((sk != sp).sum())
-    check(n_diff == 0, f"general-K kernel K={K}: {n_diff} states differ")
-    ms = cuda_ms(lambda: tv.viterbi_scan_general(*args), 3, torch)
-    bound_ms, bound_by = viterbi_general_bound(T, K)
-    log(f"[viterbi-k] kernel T={T} K={K}: states equal to the plain loop; "
-        f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={bound_ms!r} "
-        f"({bound_by})")
+    # the kernel alone, against its plain version on the same card tensors
+    per_case = {}
+    for name, arrays in inputs.items():
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        K = args[0].shape[1]
+        sk = tv.viterbi_scan_general(*args)
+        torch.cuda.synchronize()
+        passes, walked = tv.pass_count(), tv.walked_chunks()
+        chunks = int(tv.viterbi_scan_general.last_ctl[5])
+        t0 = time.perf_counter()
+        sp = tv.viterbi_scan_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        n_diff = int((sk != sp).sum())
+        check(n_diff == 0, f"general-K kernel {name}: {n_diff} states differ")
+        ms = cuda_ms(lambda: tv.viterbi_scan_general(*args), 3, torch)
+        parts = general_parts_ms(tv.viterbi_scan_general.last_ctl)
+        bound_ms, bound_by = viterbi_general_bound(T, K)
+        per_case[name] = {"ms": ms, "plain_ms": plain_ms, "passes": passes,
+                          "walked_chunks": walked, "chunks": chunks,
+                          "parts_ms": parts, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+        log(f"[viterbi-k] kernel {name}, T={T}: states equal to the plain "
+            f"loop; kernel_ms={ms!r} passes={passes} walked_chunks={walked} "
+            f"of {chunks} parts_ms(passes, walk, maps, summaries, chain, "
+            f"cumulative)={parts} plain_ms={plain_ms!r} bound_ms={bound_ms!r} "
+            f"({bound_by})")
+    main = per_case[next(iter(per_case))]
     entry = {"name": "viterbi_general", "route": "cuda",
              "source": "inaspeechsegmenter_tpu_torch/csrc/viterbi.cu",
              "replaces": "inaspeechsegmenter_tpu/decode/viterbi.py:222",
-             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "max_abs_err": 0.0, "ms": main["ms"],
+             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+             "bound_by": main["bound_by"], "library_ms": None,
              "library_note": "no single PyTorch call computes the function",
-             "shape": f"T={T}, K={K} (3 states, consecutive="
-                      f"{GENERAL_K_CONSECUTIVE})"}
+             "shape": f"T={T}, K={3 * GENERAL_K_CONSECUTIVE} (3 states, "
+                      f"consecutive={GENERAL_K_CONSECUTIVE})",
+             "cases": per_case}
     return entry, launches
 
 

@@ -506,245 +506,912 @@ extern "C" int iss_viterbi(const float* em, const uint8_t* reset,
 // constraints on many states.
 //
 // Replaces the same lax.scan, inaspeechsegmenter_tpu/decode/viterbi.py::
-// _viterbi_scan, at any K.  A simple design that is exact first:
-//   - one block for the sequence, its threads striding over the K states
-//     (a warp up to K = 32); the renormalised scores v in shared memory,
-//     and the transition matrix too when it fits (K <= 204), else read
-//     through the cache; the emissions and reset flags of the next
-//     stretch of frames (16 KB of them) staged in shared memory by the
-//     whole block, so the serial chain waits on shared memory, not on
-//     device memory;
-//   - per frame, each state k' takes the max over k of v[k] + tr[k][k'],
-//     the first index winning ties and a NaN winning as in jnp.argmax /
-//     jnp.max; then em[t][k'] + max (em + init at a reset, with identity
-//     pointers); a block reduction gives the max and its first index; v
-//     becomes v - max;
-//   - back-pointers one byte a state a frame (two bytes when K > 256), the
-//     frame's argmax in an int32;
-//   - a serial backtrack by one thread, from pointer rows that the block
-//     stages in shared memory a stretch at a time.
-// What bounds it: the dependence from frame to frame, as for the decode
-// above (the bytes, T * K * 4 of emissions, take microseconds); a frame
-// costs K dependent adds and compares a thread plus a reduction and one or
-// two barriers.  Its first version loaded each frame's inputs from device
-// memory one frame ahead, and that latency set its pace (385 ms at
-// T = 180,000, K = 30 on the H100); staging them in stretches leaves the
-// chain of shared-memory reads.  The chunk-parallel scheme above would
-// lift the serial chain itself; it is not done here.
+// _viterbi_scan, at any K.  What bounds it: the dependence from frame to
+// frame, as above; the bytes (T * K * 4 of emissions) take microseconds.
+// One cooperative launch, five parts split by grid barriers (times: T =
+// 180,000 on an H100 at 700 W, tools/torch_viterbi_ab.py, which reads each
+// part's end from ctl[8..12]):
+//   1. A values-only forward chain.  A frame computes only the next row,
+//      vn[k'] = em[t][k'] + max_k fl(v[k] + tr[k][k']) (em + init at a
+//      reset), its max M and v = fl(vn - M), and stores the row (T * K
+//      floats).  No pointer and no argmax sits on the chain: they are
+//      parts 3 and 4.  The max of a column is a tree of PTX max.NaN.f32,
+//      which returns NaN when an operand is NaN, as jnp.max does (fmaxf
+//      drops it); its value does not depend on the order.  The row max is
+//      one redux.sync.max.u32 over an order-preserving integer map of the
+//      floats with every NaN on top.  A team holds a row: for K <= 32 one
+//      warp, lane k' keeping its column of the transition matrix in
+//      registers and reading v[k] as float4 broadcasts from a
+//      double-buffered row in shared memory (one __syncwarp a frame); for
+//      K > 32 one block, a thread per state (8 states a thread above
+//      1,024), the transitions in shared memory up to K = GK_TR_SMEM_MAX,
+//      two barriers a frame.  A warp's frame costs about 400 cycles at K =
+//      30 (0.20 us): the adds and the max tree, the row max and the shared
+//      row's round trip are each on the chain (tools/viterbi_chain_bench.cu
+//      times them apart), so the row stores and the bit compare of part 2
+//      are taken off it: the rows go out and the compare is made once a
+//      group of GROUP frames and at a chunk's last frame.
+//      Signed zeros: a state depends on comparisons of real values only, so
+//      the sign of a zero never changes one.  v = vn - M <= +0, and a state
+//      whose vn has M's bits gives x - x = +0; a -0 can reach a row only
+//      from a -0 emission added to a -0 max, and every run of the kernel
+//      computes each row with the same instructions, so the bit compare
+//      of part 2 sees equal bits for equal inputs.
+//   2. Chunk-parallel passes where rows converge (the scheme of iss_viterbi
+//      above, steps 1-4): P chunks of L frames, one team each (8 warps a
+//      block of 256 threads for K <= 32, one block per SM); a speculative
+//      pass from zero rows; fix-up passes from the left neighbour's exit,
+//      each stopping in the first chunk frame whose new row is bit-equal
+//      (__float_as_uint, so NaN rows converge too) to the stored row; after
+//      PASS_CAP passes a serial walk by one team on the same values-only
+//      chain.  Exact by the same induction.  Why this split: a decode whose
+//      rows forget their entry within a few frames (random dense K = 30, K
+//      = 8 with constraints) converges in 2 passes, 0.05 ms.  A uniform
+//      `consecutive` expansion never does: every cycle of its graph has
+//      length c, so the states fall into c phase classes that no path
+//      crosses, and the offsets between the classes are kept for ever.
+//      There the passes run to the cap and the walk takes the rest of the
+//      sequence: at K = 30, 3.3 ms of passes (64 of L = 171 frames on 132
+//      SMs, 1,053 chunks) and 34.4 ms of walk (988 chunks), so the cap costs
+//      a tenth of the walk and there is no early switch.
+//   3. Back-pointers and argmax off the chain, in parallel over (t, k'):
+//      the backtrack's map of frame t, m[t][j] = argmax_k fl(v[t][k] +
+//      tr[k][j]) (the next frame's pointer), or argmax v[t] for every j when
+//      frame t ends a segment (the next frame resets, or t = T - 1), by
+//      jnp.argmax's rule (the first index of the max; a NaN wins, the first
+//      one), as a tree whose combines keep the lower indices on the left.
+//      One byte a state a frame (two above 256 states); T * K * K adds
+//      (0.16 G at K = 30), a warp per 16 frames: 0.075 ms at K = 30.
+//   4. The backtrack by map composition, as iss_viterbi's step 5 with
+//      K-element maps: each team composes its chunk's maps, staged in
+//      shared memory in aligned 16-byte words, into one summary F_c (the
+//      state at the chunk's first frame as a function of the state after
+//      its last), 0.006 ms; then block 0 chains the P summaries from the
+//      last chunk (its 8 warps each compose a range, one thread chains the
+//      ranges, each warp its range), giving each chunk the state after its
+//      last frame, 0.008 ms;
+//   5. and each team walks its chunk backward, writing states.
 // The float ops are _viterbi_scan's, one rounding each (__fadd_rn,
 // __fsub_rn): the states equal viterbi_scan_plain's bit for bit, NaN rows
 // included (an all -inf frame gives NaN scores, argmax 0).
+// Scratch: the rows T * K * 4 bytes, the maps T * K (or 2 T * K), the exits
+// and entries 3 * P * K * 4, the summaries P * K (or 2 P * K), P chunk
+// states: 27.4 MB at T = 180,000, K = 30 (rows 21.6 MB, maps 5.4 MB).  At
+// K = 8192, 49,152 bytes a frame beside the 32,768 of the emissions: about
+// a million frames fill an 80 GB card.
 
 namespace {
 
 constexpr int GK_MAX = 8192;          // states
 constexpr int GK_PER_THREAD = 8;      // states a thread, at most
-constexpr int GK_TR_SMEM_MAX = 204;   // K whose K*K transitions sit in
-                                      // shared memory (166,464 bytes)
-constexpr int GK_STAGE_BYTES = 16384; // inputs staged for the forward,
-                                      // pointers for the backtrack
+constexpr int GK_WARPS = 8;           // warp teams a block, K <= 32
+constexpr int GK_TR_SMEM_MAX = 200;   // K whose K*K transitions a block
+                                      // team keeps in shared memory
+constexpr int GK_WARP_STAGE = 4096;   // bytes of maps a warp team stages
+constexpr int GK_STAGE = GK_WARPS * GK_WARP_STAGE;  // a block's staging
+constexpr unsigned FULL = 0xffffffffu;
 
-// (bv, bi) <- the winner of (bv, bi) and (cv, ci) under jnp.argmax's rule
-// over indices: a NaN wins (the first one), else the greater value, ties
-// to the lower index.
-__device__ __forceinline__ void gk_combine(float& bv, int& bi, float cv,
-                                           int ci) {
-  const bool bn = bv != bv, cn = cv != cv;
-  const bool take = (bn || cn) ? (cn && (!bn || ci < bi))
-                               : (cv > bv || (cv == bv && ci < bi));
-  if (take) {
-    bv = cv;
-    bi = ci;
-  }
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-// up to 1024 threads: the register budget is 64 a thread (K > 992 spills
-// the per-state arrays to local memory rather than fail to launch)
-template <typename PtrT>
-__global__ void __launch_bounds__(1024) viterbi_general_kernel(
-    const float* __restrict__ em, const uint8_t* __restrict__ reset,
-    const float* __restrict__ trans, const float* __restrict__ init, int T,
-    int K, bool tr_smem, PtrT* ptr, int32_t* amax, int32_t* states) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* v = reinterpret_cast<float*>(smem);               // (K,)
-  float* red_v = v + K;                                    // (32,)
-  int* red_i = reinterpret_cast<int*>(red_v + 32);         // (32,)
-  float* tr_s = reinterpret_cast<float*>(red_i + 32);      // (K, K) or none
-  unsigned char* stage =
-      reinterpret_cast<unsigned char*>(tr_s + (tr_smem ? K * K : 0));
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
-  const float* tr = tr_smem ? tr_s : trans;
-  if (tr_smem) {
-    for (int i = tid; i < K * K; i += nt) tr_s[i] = trans[i];
-  }
-  float ini[GK_PER_THREAD], vn[GK_PER_THREAD];
+// An order-preserving map of floats to unsigned keys, every NaN on top.
+__device__ __forceinline__ uint32_t fkey(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if (x != x) return 0xffffffffu;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The float of a key (a NaN for the NaN key).
+__device__ __forceinline__ float unkey(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// c[0] <- the max of c[0 .. 2W), a tree with constant indices (so that c
+// stays in registers)
+template <int W>
+__device__ __forceinline__ void tree_max(float* c) {
 #pragma unroll
-  for (int s = 0; s < GK_PER_THREAD; ++s) {
-    const int k = tid + s * nt;
-    ini[s] = k < K ? init[k] : 0.0f;
+  for (int k = 0; k < W; ++k) c[k] = max_nan(c[k], c[k + W]);
+  if constexpr (W > 1) tree_max<W / 2>(c);
+}
+
+// (c[0], i[0]) <- the first index of the max of c[0 .. KB) and its value,
+// by jnp.argmax's rule (a NaN wins, the first one): a tree whose every
+// combine has the lower indices on its left, where the right wins only if
+// it takes over, so ties keep the lower index as the linear scan does.
+template <int S, int KB>
+__device__ __forceinline__ void tree_argmax(float* c, int* i) {
+#pragma unroll
+  for (int k = 0; k < KB; k += 2 * S) {
+    const bool r = takes_over(c[k + S], c[k]);
+    c[k] = r ? c[k + S] : c[k];
+    i[k] = r ? i[k + S] : i[k];
+  }
+  if constexpr (2 * S < KB) tree_argmax<2 * S, KB>(c, i);
+}
+
+// the device's nanosecond clock
+__device__ __forceinline__ unsigned long long gk_clock() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+
+struct GkProblem {
+  const float* em;       // (T, K)
+  const uint8_t* reset;  // (T,)
+  const float* trans;    // (K, K)
+  const float* init;     // (K,)
+  int T, K, L, P;        // frames, states, frames a chunk, chunks
+  float* rows;           // (T, K) every frame's renormalised scores
+  float* exits;          // (3, P, K): exits by pass parity, then entries
+  void* maps;            // (T, K) the backtrack's maps (PtrT)
+  void* sums;            // (P, K) the chunks' summaries (PtrT)
+  int32_t* xb;           // (P,) the state after each chunk's last frame
+  int32_t* ctl;          // [0..2] go-on flags, [3] passes, [4] chunks
+                         // walked, [5] P, [6] L, [8..12] the ns from the
+                         // start to the end of part 2's passes, the walk,
+                         // parts 3, 4's summaries, 4's chain (block 0's
+                         // clock, after each grid barrier)
+  int32_t* states;       // (T,) out
+};
+
+// One warp holds a row (K <= KB <= 32): lane k' keeps state k'.
+template <int KB>
+struct WarpTeam {
+  static constexpr int S = 1;         // states a thread
+  static constexpr int PER_BLOCK = GK_WARPS;
+  float trc[KB];                      // trans[k][lane], -inf past K
+  float ini;
+  int K, lane, team;
+  bool on;                            // lane < K
+  float* sv;                          // 2 x 32 floats: the row, twice
+  unsigned char* stage;               // GK_WARP_STAGE bytes
+  int* s_next;                        // the block's walk cursor
+
+  __device__ void setup(const GkProblem& pr, unsigned char* smem) {
+    K = pr.K;
+    lane = threadIdx.x & 31;
+    team = threadIdx.x >> 5;
+    on = lane < K;
+    sv = reinterpret_cast<float*>(smem) + team * 64;
+    stage = smem + GK_WARPS * 64 * sizeof(float) + team * GK_WARP_STAGE;
+    s_next = reinterpret_cast<int*>(smem + GK_WARPS * 64 * sizeof(float) +
+                                    GK_STAGE);
+#pragma unroll
+    for (int k = 0; k < KB; ++k) {
+      trc[k] = k < K && on ? pr.trans[k * K + lane]
+                           : __int_as_float(0xff800000);
+    }
+    ini = on ? pr.init[lane] : 0.0f;
+  }
+  __device__ unsigned char* block_stage(unsigned char* smem) const {
+    return smem + GK_WARPS * 64 * sizeof(float);
+  }
+  __device__ int state(int) const { return lane; }
+  __device__ bool has(int) const { return on; }
+  __device__ bool leader() const { return lane == 0; }
+  __device__ void sync() const { __syncwarp(); }
+  __device__ void load_row(const float* p, float (&v)[S]) const {
+    v[0] = on ? __ldcg(p + lane) : 0.0f;
+  }
+  __device__ void store_row(float* p, const float (&v)[S]) const {
+    if (on) p[lane] = v[0];
+  }
+  __device__ bool same_row(const float* p, const float (&v)[S]) const {
+    return __all_sync(FULL, !on || same_bits(__ldcg(p + lane), v[0]));
+  }
+  template <typename PtrT>
+  __device__ int stage_rows() const {
+    return (GK_WARP_STAGE - 16) / (K * (int)sizeof(PtrT));
   }
 
-  // ---- forward: the inputs of G frames staged at a time -----------------
-  // (the chain of frames waits on shared memory, not on device memory)
-  int G = GK_STAGE_BYTES / (K * (int)sizeof(float) + 1);
-  if (G < 1) G = 1;
-  float* s_em = reinterpret_cast<float*>(stage);           // (G, K)
-  uint8_t* s_rst = reinterpret_cast<uint8_t*>(s_em + (size_t)G * K);  // (G,)
-  for (int t0 = 0; t0 < T; t0 += G) {
-    const int g = T - t0 < G ? T - t0 : G;
-    __syncthreads();                   // the previous stretch is read
-    for (int i = tid; i < g * K; i += nt) s_em[i] = em[(size_t)t0 * K + i];
-    for (int j = tid; j < g; j += nt) {
-      s_rst[j] = t0 + j == 0 || reset[t0 + j] != 0;   // frame 0 starts
-    }
-    __syncthreads();
-    for (int j = 0; j < g; ++j) {
-      const int t = t0 + j;
-      const bool rst = s_rst[j] != 0;
-      const float* e = s_em + (size_t)j * K;
-      float bv = __int_as_float(0xff800000);   // -inf
-      int bi = INT_MAX;
+  // Runs frames [a, b) from the row v (the entry); v is the last row on
+  // return.  Stores every row, and with exits (the walk) each completed
+  // chunk's exit.  With CHECK, stops at the first check point (the last
+  // frame of a group of G, of a chunk, of the run) whose new row is
+  // bit-equal to the stored one and returns it; else returns -1.  A check
+  // at every frame would stop in the same chunk (from the first equal row
+  // on, every row of the chunk equals its stored one) and puts a vote on
+  // the chain.
+  template <bool CHECK>
+  __device__ int run(const GkProblem& pr, float (&v)[S], int a, int b,
+                     float* exits) {
+    constexpr int G = GROUP;          // frames whose inputs load ahead
+    const int T = pr.T;
+    // the next group's inputs load while this group runs: nothing reads
+    // them (not even the reset bytes) before then
+    float ce[G], co[G], ne[G], no[G];
+    int cr[G], nr[G];
+    auto load = [&](int t0, float (&e)[G], float (&o)[G], int (&r)[G]) {
 #pragma unroll
-      for (int s = 0; s < GK_PER_THREAD; ++s) {
-        const int k2 = tid + s * nt;
-        if (k2 >= K) break;
-        float sc;
-        int arg;
-        if (rst) {
-          sc = ini[s];
-          arg = k2;
-        } else {
-          float best = __fadd_rn(v[0], tr[k2]);
-          arg = 0;
-          for (int k = 1; k < K; ++k) {
-            const float c = __fadd_rn(v[k], tr[(size_t)k * K + k2]);
-            if (best == best && !(c <= best)) {
-              best = c;
-              arg = k;
+      for (int g = 0; g < G; ++g) {
+        const int t = min(t0 + g, T - 1);
+        e[g] = on ? __ldg(pr.em + (size_t)t * K + lane) : 0.0f;
+        o[g] = CHECK && on ? __ldcg(pr.rows + (size_t)t * K + lane) : 0.0f;
+        r[g] = __ldg(pr.reset + t);
+      }
+    };
+    int cur = 0;
+    sv[lane] = on ? v[0] : 0.0f;
+    __syncwarp();
+    int edge = min((a / pr.L + 1) * pr.L, T);  // the end of a's chunk
+    float xs[G];                      // the group's rows, stored together
+    load(a, ce, co, cr);
+    for (int t0 = a; t0 < b; t0 += G) {
+      load(t0 + G, ne, no, nr);
+      int f0 = 0;                     // the group's first row not stored
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int t = t0 + g;
+        if (t >= b) break;
+        const float* row = sv + cur * 32;
+        float c[KB];
+#pragma unroll
+        for (int k = 0; k < KB; k += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(row + k);
+          c[k] = __fadd_rn(x.x, trc[k]);
+          c[k + 1] = __fadd_rn(x.y, trc[k + 1]);
+          c[k + 2] = __fadd_rn(x.z, trc[k + 2]);
+          c[k + 3] = __fadd_rn(x.w, trc[k + 3]);
+        }
+        tree_max<KB / 2>(c);
+        const bool rst = cr[g] != 0 || t == 0;
+        const float vn = __fadd_rn(ce[g], rst ? ini : c[0]);
+        const float m = unkey(__reduce_max_sync(FULL, on ? fkey(vn) : 0u));
+        const float x = __fsub_rn(vn, m);
+        v[0] = x;
+        xs[g] = x;
+        cur ^= 1;
+        sv[cur * 32 + lane] = on ? x : 0.0f;   // the next frame's row
+        if (g == G - 1 || t + 1 == edge || t + 1 == b) {
+          // a check point: the rows since the last one go out together
+          // (off the chain), then the compare
+#pragma unroll
+          for (int h = 0; h < G; ++h) {
+            if (on && h >= f0 && h <= g) {
+              pr.rows[(size_t)(t0 + h) * K + lane] = xs[h];
             }
           }
-          sc = best;
+          f0 = g + 1;
+          if (t + 1 == edge) {
+            if (exits != nullptr && on) {
+              exits[(size_t)(t / pr.L) * K + lane] = x;
+            }
+            edge = min(edge + pr.L, T);
+          }
+          if (CHECK && __all_sync(FULL, !on || same_bits(x, co[g]))) {
+            return t;
+          }
         }
-        vn[s] = __fadd_rn(e[k2], sc);
-        ptr[(size_t)t * K + k2] = (PtrT)arg;
-        gk_combine(bv, bi, vn[s], k2);
+        __syncwarp();
       }
-      // the row's max and its first index over the block
 #pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, d);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, d);
-        gk_combine(bv, bi, ov, oi);
+      for (int g = 0; g < G; ++g) {
+        ce[g] = ne[g];
+        co[g] = no[g];
+        cr[g] = nr[g];
       }
-      if (nwarps > 1) {
-        if (lane == 0) {
-          red_v[warp] = bv;
-          red_i[warp] = bi;
-        }
-        __syncthreads();
-        bv = red_v[0];
-        bi = red_i[0];
-        for (int w = 1; w < nwarps; ++w) {
-          gk_combine(bv, bi, red_v[w], red_i[w]);
-        }
-      }
-      // every v[k] was read above (with several warps, the barrier of the
-      // reduction orders the writes below after those reads)
-      if (nwarps == 1) __syncwarp();
+    }
+    return -1;
+  }
+
+  // Part 3 for groups of MG consecutive frames a warp, grid-strided: the
+  // group's rows load coalesced into the warp's staging area, and its
+  // frames' argmax chains are independent (each lane a state).
+  template <typename PtrT>
+  __device__ void maps_pass(const GkProblem& pr) {
+    constexpr int MG = 16;            // frames a group (MG * KB floats)
+    PtrT* maps = reinterpret_cast<PtrT*>(pr.maps);
+    float* buf = reinterpret_cast<float*>(stage);   // (MG, KB), -inf past K
+    const int T = pr.T;
+    const int total = gridDim.x * GK_WARPS;
+    if (!on && lane < KB) {
 #pragma unroll
-      for (int s = 0; s < GK_PER_THREAD; ++s) {
-        const int k2 = tid + s * nt;
-        if (k2 >= K) break;
-        v[k2] = __fsub_rn(vn[s], bv);
+      for (int g = 0; g < MG; ++g) buf[g * KB + lane] = __int_as_float(0xff800000);
+    }
+    for (int t0 = (blockIdx.x * GK_WARPS + team) * MG; t0 < T;
+         t0 += total * MG) {
+      const int n = min(MG, T - t0);
+      const int next = lane < n && t0 + lane + 1 < T
+                           ? __ldg(pr.reset + t0 + lane + 1) : 1;
+      float x[MG];                    // all in flight
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        x[g] = on && g < n ? __ldcg(pr.rows + (size_t)(t0 + g) * K + lane)
+                           : 0.0f;
       }
-      if (tid == 0) amax[t] = bv != bv ? 0 : bi;
-      if (nwarps == 1) __syncwarp(); else __syncthreads();
+      const uint32_t ends = __ballot_sync(FULL, lane < n && next != 0);
+      __syncwarp();                   // the previous group's reads are done
+      if (on) {
+#pragma unroll
+        for (int g = 0; g < MG; ++g) buf[g * KB + lane] = x[g];
+      }
+      __syncwarp();
+#pragma unroll 4
+      for (int g = 0; g < MG; ++g) {
+        if (g >= n) break;
+        const float4* row = reinterpret_cast<const float4*>(buf + g * KB);
+        float c[KB];
+        int arg[KB];
+        if ((ends >> g) & 1u) {       // a segment's end: argmax of the row
+#pragma unroll
+          for (int k = 0; k < KB; k += 4) {
+            const float4 q = row[k / 4];
+            c[k] = q.x;
+            c[k + 1] = q.y;
+            c[k + 2] = q.z;
+            c[k + 3] = q.w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < KB; k += 4) {
+            const float4 q = row[k / 4];
+            c[k] = __fadd_rn(q.x, trc[k]);
+            c[k + 1] = __fadd_rn(q.y, trc[k + 1]);
+            c[k + 2] = __fadd_rn(q.z, trc[k + 2]);
+            c[k + 3] = __fadd_rn(q.w, trc[k + 3]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < KB; ++k) arg[k] = k;
+        tree_argmax<1, KB>(c, arg);
+        if (on) maps[(size_t)(t0 + g) * K + lane] = (PtrT)arg[0];
+      }
+    }
+  }
+};
+
+// A block team's staging area, 16-byte aligned after its two rows and its
+// 64 words of keys and cursor.
+__host__ __device__ constexpr size_t block_stage_offset(int K) {
+  return ((size_t)2 * K * sizeof(float) + 64 * sizeof(uint32_t) + 15) &
+         ~(size_t)15;
+}
+
+// One block holds a row (K > 32): thread i keeps states i, i + nt, ...
+template <int S_>
+struct BlockTeam {
+  static constexpr int S = S_;
+  static constexpr int PER_BLOCK = 1;
+  float ini[S];
+  int K, nt, tid, team;
+  float* sv;                          // 2 x K floats
+  uint32_t* red;                      // 32 keys
+  int* s_next;
+  const float* tr;                    // shared copy, or device memory
+  unsigned char* stage;               // GK_STAGE bytes
+
+  __device__ void setup(const GkProblem& pr, unsigned char* smem) {
+    K = pr.K;
+    nt = blockDim.x;
+    tid = threadIdx.x;
+    team = 0;
+    sv = reinterpret_cast<float*>(smem);
+    red = reinterpret_cast<uint32_t*>(sv + 2 * K);
+    s_next = reinterpret_cast<int*>(red + 32);
+    stage = smem + block_stage_offset(K);
+    float* tr_s = reinterpret_cast<float*>(stage + GK_STAGE);
+    if (K <= GK_TR_SMEM_MAX) {
+      for (int i = tid; i < K * K; i += nt) tr_s[i] = pr.trans[i];
+      tr = tr_s;
+    } else {
+      tr = pr.trans;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) ini[s] = has(s) ? pr.init[state(s)] : 0.0f;
+    __syncthreads();
+  }
+  __device__ unsigned char* block_stage(unsigned char*) const {
+    return stage;
+  }
+  __device__ int state(int s) const { return tid + s * nt; }
+  __device__ bool has(int s) const { return tid + s * nt < K; }
+  __device__ bool leader() const { return tid == 0; }
+  __device__ void sync() const { __syncthreads(); }
+  __device__ void load_row(const float* p, float (&v)[S]) const {
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] = has(s) ? __ldcg(p + state(s)) : 0.0f;
+  }
+  __device__ void store_row(float* p, const float (&v)[S]) const {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (has(s)) p[state(s)] = v[s];
+    }
+  }
+  __device__ bool same_row(const float* p, const float (&v)[S]) const {
+    bool same = true;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      same = same && (!has(s) || same_bits(__ldcg(p + state(s)), v[s]));
+    }
+    return __syncthreads_and(same);
+  }
+  template <typename PtrT>
+  __device__ int stage_rows() const {
+    const int n = (GK_STAGE - 16) / (K * (int)sizeof(PtrT));
+    return n < 1 ? 1 : n;
+  }
+
+  template <bool CHECK>
+  __device__ int run(const GkProblem& pr, float (&v)[S], int a, int b,
+                     float* exits) {
+    const int T = pr.T;
+    const int lane = tid & 31, nwarps = (nt + 31) >> 5;
+    int cur = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (has(s)) sv[state(s)] = v[s];
+    }
+    __syncthreads();
+    int edge = min((a / pr.L + 1) * pr.L, T);
+    for (int t = a; t < b; ++t) {
+      const bool rst = t == 0 || __ldg(pr.reset + t) != 0;
+      float e[S], o[S], vn[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const size_t i = (size_t)t * K + state(s);
+        e[s] = has(s) ? __ldg(pr.em + i) : 0.0f;
+        o[s] = CHECK && has(s) ? __ldcg(pr.rows + i) : 0.0f;
+      }
+      const float* row = sv + cur * K;
+      uint32_t key = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (!has(s)) continue;
+        const int kp = state(s);
+        float best = ini[s];
+        if (!rst) {
+          const float ninf = __int_as_float(0xff800000);
+          float m0 = ninf, m1 = ninf, m2 = ninf, m3 = ninf;
+          int k = 0;
+          for (; k + 4 <= K; k += 4) {
+            m0 = max_nan(m0, __fadd_rn(row[k], tr[(size_t)k * K + kp]));
+            m1 = max_nan(m1, __fadd_rn(row[k + 1],
+                                       tr[(size_t)(k + 1) * K + kp]));
+            m2 = max_nan(m2, __fadd_rn(row[k + 2],
+                                       tr[(size_t)(k + 2) * K + kp]));
+            m3 = max_nan(m3, __fadd_rn(row[k + 3],
+                                       tr[(size_t)(k + 3) * K + kp]));
+          }
+          for (; k < K; ++k) {
+            m0 = max_nan(m0, __fadd_rn(row[k], tr[(size_t)k * K + kp]));
+          }
+          best = max_nan(max_nan(m0, m1), max_nan(m2, m3));
+        }
+        vn[s] = __fadd_rn(e[s], best);
+        key = max(key, fkey(vn[s]));
+      }
+      key = __reduce_max_sync(FULL, key);
+      if (lane == 0) red[tid >> 5] = key;
+      __syncthreads();
+      uint32_t mk = red[0];
+      for (int w = 1; w < nwarps; ++w) mk = max(mk, red[w]);
+      const float m = unkey(mk);
+      bool same = true;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (!has(s)) continue;
+        v[s] = __fsub_rn(vn[s], m);
+        same = same && same_bits(v[s], o[s]);
+      }
+      // the barrier orders this frame's reads of red and of the row before
+      // the next frame's writes
+      if (CHECK) {
+        if (__syncthreads_and(same)) return t;
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (!has(s)) continue;
+        const int kp = state(s);
+        pr.rows[(size_t)t * K + kp] = v[s];
+        if (exits != nullptr && t + 1 == edge) {
+          exits[(size_t)(t / pr.L) * K + kp] = v[s];
+        }
+        sv[(cur ^ 1) * K + kp] = v[s];
+      }
+      if (t + 1 == edge) edge = min(edge + pr.L, T);
+      cur ^= 1;
+      __syncthreads();
+    }
+    return -1;
+  }
+
+  // Part 3, grid-strided over (t, k').
+  template <typename PtrT>
+  __device__ void maps_pass(const GkProblem& pr) {
+    PtrT* maps = reinterpret_cast<PtrT*>(pr.maps);
+    const size_t n = (size_t)pr.T * K;
+    const size_t stride = (size_t)gridDim.x * nt;
+    for (size_t i = (size_t)blockIdx.x * nt + tid; i < n; i += stride) {
+      const int t = (int)(i / K), j = (int)(i % K);
+      const float* row = pr.rows + (size_t)t * K;
+      const bool end = t + 1 >= pr.T || __ldg(pr.reset + t + 1) != 0;
+      float best = end ? __ldcg(row) : __fadd_rn(__ldcg(row), __ldg(pr.trans + j));
+      int arg = 0;
+      for (int k = 1; k < K; ++k) {
+        const float x = __ldcg(row + k);
+        const float cnd =
+            end ? x : __fadd_rn(x, __ldg(pr.trans + (size_t)k * K + j));
+        if (takes_over(cnd, best)) {
+          best = cnd;
+          arg = k;
+        }
+      }
+      maps[i] = (PtrT)arg;
+    }
+  }
+};
+
+// Copies the bytes [src, src + nbytes) into dst (16-byte aligned) in
+// aligned 16-byte words, 4 loads a thread in flight, by nthr threads;
+// returns the offset in dst of src's first byte.  The words past either end
+// lie in the same allocation (device allocations are 256-byte aligned).
+__device__ __forceinline__ int copy_span(unsigned char* dst,
+                                         const void* src, int nbytes,
+                                         int nthr, int rank) {
+  const uintptr_t a = (uintptr_t)src & ~(uintptr_t)15;
+  const int off = (int)((uintptr_t)src - a);
+  const int words = (off + nbytes + 15) / 16;
+  const uint4* s4 = reinterpret_cast<const uint4*>(a);
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  for (int i0 = rank; i0 < words; i0 += 4 * nthr) {
+    uint4 x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i0 + j * nthr;
+      if (i < words) x[j] = __ldcg(s4 + i);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i0 + j * nthr < words) d4[i0 + j * nthr] = x[j];
+    }
+  }
+  return off;
+}
+
+// Stages the n elements from src into the team's area -> where they are.
+template <class Team, typename PtrT>
+__device__ __forceinline__ const PtrT* stage_in(const Team& tm,
+                                                unsigned char* area,
+                                                const PtrT* src, int n,
+                                                int nthr, int rank) {
+  tm.sync();                          // the previous piece is read
+  const int off = copy_span(area, src, n * (int)sizeof(PtrT), nthr, rank);
+  tm.sync();
+  return reinterpret_cast<const PtrT*>(area + off);
+}
+
+// Part 4's chain when every summary fits in block 0's staging area (K <= 32
+// on H100: 1,056 chunks): each of the block's warps composes the summaries
+// of its range of chunks into one map (a lane a state), one thread chains
+// the warps' maps, then each warp chains its own range from its exit: two
+// chains of P / 8 shared-memory reads and one of 8, where one thread would
+// chain all P.  gw: (warps, 32) ints and (warps,) ints of shared memory.
+template <typename PtrT>
+__device__ void chain_sums_by_warps(const GkProblem& pr, PtrT* bs, int* gw,
+                                    const PtrT* sums) {
+  const int P = pr.P, K = pr.K;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int* in = gw + nw * 32;
+  copy_span(reinterpret_cast<unsigned char*>(bs), sums,
+            P * K * (int)sizeof(PtrT), blockDim.x, threadIdx.x);
+  __syncthreads();
+  // chunks 1 .. P-1 in nw ranges; range w maps the state after its last
+  // chunk to the state before its first
+  const int per = (P - 1 + nw - 1) / nw;
+  const int lo = 1 + w * per, hi = min(P, lo + per);
+  if (lane < K) {
+    int g = lane;
+    for (int c = hi - 1; c >= lo; --c) g = bs[c * K + g];
+    gw[w * 32 + lane] = g;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int x = 0;
+    for (int r = nw - 1; r >= 0; --r) {
+      in[r] = x;
+      x = gw[r * 32 + x];
     }
   }
   __syncthreads();
-
-  // ---- backtrack: stretches of F frames staged in shared memory --------
-  // staged row j is frame lo + j for amax, frame lo + 1 + j for the
-  // pointers and the reset flag (a segment end when set)
-  const int row = K * (int)sizeof(PtrT);
-  int F = GK_STAGE_BYTES / (row + 5);
-  if (F < 1) F = 1;
-  int32_t* s_amax = reinterpret_cast<int32_t*>(stage);
-  PtrT* s_ptr = reinterpret_cast<PtrT*>(s_amax + F);
-  uint8_t* s_end = reinterpret_cast<uint8_t*>(s_ptr + (size_t)F * K);
-  int x = 0;
-  for (int hi = T; hi > 0; hi -= F) {
-    const int lo = hi - F > 0 ? hi - F : 0;
-    const int n = hi - lo;
-    __syncthreads();                   // the previous stretch is walked
-    for (int j = tid; j < n; j += nt) {
-      s_amax[j] = amax[lo + j];
-      s_end[j] = lo + 1 + j >= T ? 1 : reset[lo + 1 + j];
+  if (lane == 0) {
+    int x = in[w];
+    for (int c = hi - 1; c >= lo; --c) {
+      x = bs[c * K + x];
+      pr.xb[c - 1] = x;
     }
-    const int n_ptr = lo + n < T ? n : n - 1;   // rows that exist
-    for (int i = tid; i < n_ptr * K; i += nt) {
-      s_ptr[i] = ptr[(size_t)(lo + 1) * K + i];
+  }
+}
+
+// The serial walk (part 2's end), by block 0: from the first chunk whose
+// entry differs from its neighbour's exit, one team runs on through the
+// following chunks until it stops on a stored row; then the next such
+// chunk.  exits: the last pass's exits; entries: each chunk's entry.
+template <class Team>
+__device__ void gk_walk(const GkProblem& pr, Team& tm, float* exits,
+                        const float* entries) {
+  constexpr int S = Team::S;
+  const int P = pr.P, K = pr.K;
+  int* s_next = tm.s_next;
+  int from = 1, walked = 0;
+  for (;;) {
+    if (threadIdx.x == 0) *s_next = P;
+    __syncthreads();
+    for (int base = from; base < P; base += blockDim.x) {
+      const int i = base + threadIdx.x;
+      bool hit = false;
+      if (i < P) {
+        const float* x = exits + (size_t)(i - 1) * K;
+        const float* y = entries + (size_t)i * K;
+        for (int k = 0; k < K && !hit; ++k) {
+          hit = !same_bits(__ldcg(x + k), __ldcg(y + k));
+        }
+      }
+      if (hit) atomicMin(s_next, i);
+      if (__syncthreads_or(hit)) break;
+    }
+    const int first = *s_next;
+    __syncthreads();
+    if (first >= P) break;
+    if (tm.team == 0) {
+      float v[S];
+      tm.load_row(exits + (size_t)(first - 1) * K, v);
+      const int stop = tm.template run<true>(pr, v, first * pr.L, pr.T,
+                                             exits);
+      const int last = stop < 0 ? P - 1 : stop / pr.L;
+      walked += last - first + 1;
+      if (threadIdx.x == 0) *s_next = last + 1;
     }
     __syncthreads();
-    if (tid == 0) {
-      for (int j = n - 1; j >= 0; --j) {
-        x = s_end[j] ? s_amax[j] : (int)s_ptr[(size_t)j * K + x];
-        states[lo + j] = x;
+    from = *s_next;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) pr.ctl[4] = walked;
+}
+
+template <class Team, typename PtrT, int THREADS_MAX>
+__global__ void __launch_bounds__(THREADS_MAX, 1)
+    gk_kernel(const GkProblem pr) {
+  extern __shared__ __align__(16) unsigned char gk_smem[];
+  constexpr int S = Team::S;
+  cg::grid_group grid = cg::this_grid();
+  Team tm;
+  tm.setup(pr, gk_smem);
+  const int T = pr.T, K = pr.K, L = pr.L, P = pr.P;
+  int32_t* ctl = pr.ctl;
+  const int c = blockIdx.x * Team::PER_BLOCK + tm.team;
+  const bool live = c < P;
+  const int a = live ? c * L : T;
+  const int b = live ? min(a + L, T) : T;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+  float v[S], ent[S], ex[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) v[s] = ent[s] = 0.0f;
+  const unsigned long long t_start = gk_clock();
+  auto mark = [&](int i) {
+    if (lead) ctl[8 + i] = (int32_t)(gk_clock() - t_start);
+  };
+
+  // ---- part 2, pass 0: speculative forward from zero rows ----------------
+  if (lead) {
+    ctl[1] = 0;
+    ctl[4] = 0;
+    ctl[5] = P;
+    ctl[6] = L;
+  }
+  if (live) {
+    tm.template run<false>(pr, v, a, b, nullptr);
+    tm.store_row(pr.exits + (size_t)c * K, v);
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) ex[s] = v[s];
+  grid.sync();
+
+  // ---- fix-up passes -----------------------------------------------------
+  int pass = 0;
+  bool more = P > 1;
+  while (more && pass < PASS_CAP) {
+    ++pass;
+    if (lead) ctl[(pass + 1) % 3] = 0;
+    bool go_on = false;
+    if (live && c > 0) {
+      const float* n =
+          pr.exits + ((size_t)((pass - 1) & 1) * P + c - 1) * K;
+      if (!tm.same_row(n, ent)) {
+        tm.load_row(n, ent);
+#pragma unroll
+        for (int s = 0; s < S; ++s) v[s] = ent[s];
+        if (tm.template run<true>(pr, v, a, b, nullptr) < 0) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) ex[s] = v[s];
+          go_on = c < P - 1;
+        }
+      }
+    }
+    if (live) tm.store_row(pr.exits + ((size_t)(pass & 1) * P + c) * K, ex);
+    if (__syncthreads_or(go_on) && threadIdx.x == 0) {
+      atomicOr(ctl + pass % 3, 1);
+    }
+    grid.sync();
+    more = __ldcg(ctl + pass % 3) != 0;
+  }
+  if (lead) ctl[3] = pass + 1;
+  mark(0);
+
+  // ---- the serial walk, when the passes did not converge ----------------
+  if (more) {                          // the same on every thread
+    if (live) tm.store_row(pr.exits + ((size_t)2 * P + c) * K, ent);
+    grid.sync();
+    if (blockIdx.x == 0) {
+      gk_walk<Team>(pr, tm, pr.exits + (size_t)(pass & 1) * P * K,
+                    pr.exits + (size_t)2 * P * K);
+    }
+  }
+  grid.sync();
+  mark(1);
+
+  // ---- part 3: the maps, off the chain -----------------------------------
+  tm.template maps_pass<PtrT>(pr);
+  grid.sync();
+  mark(2);
+
+  // ---- part 4: chunk summaries, then the chain of summaries --------------
+  const PtrT* maps = reinterpret_cast<const PtrT*>(pr.maps);
+  PtrT* sums = reinterpret_cast<PtrT*>(pr.sums);
+  const int rows = tm.template stage_rows<PtrT>();
+  const int nthr = Team::PER_BLOCK == 1 ? (int)blockDim.x : 32;
+  const int rank = Team::PER_BLOCK == 1 ? (int)threadIdx.x
+                                        : (int)(threadIdx.x & 31);
+  if (live) {
+    int f[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) f[s] = tm.state(s);
+    for (int hi = b; hi > a; hi -= rows) {
+      const int lo = max(a, hi - rows);
+      const PtrT* st = stage_in(tm, tm.stage, maps + (size_t)lo * K,
+                                (hi - lo) * K, nthr, rank);
+      for (int t = hi - 1; t >= lo; --t) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (tm.has(s)) f[s] = st[(size_t)(t - lo) * K + f[s]];
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (tm.has(s)) sums[(size_t)c * K + tm.state(s)] = (PtrT)f[s];
+    }
+  }
+  grid.sync();
+  mark(3);
+  if (blockIdx.x == 0) {
+    unsigned char* stage = tm.block_stage(gk_smem);
+    int n = (GK_STAGE - 16) / (K * (int)sizeof(PtrT));   // chunks a tile
+    if (n < 1) n = 1;
+    int x = 0;                         // after the last frame: any state
+    if (threadIdx.x == 0) pr.xb[P - 1] = 0;
+    const bool by_warps = Team::PER_BLOCK > 1 &&
+                          P * K * (int)sizeof(PtrT) <= GK_STAGE;
+    if (by_warps) {
+      chain_sums_by_warps(pr, reinterpret_cast<PtrT*>(stage), tm.s_next + 4,
+                          sums);
+    }
+    for (int hi = by_warps ? 1 : P; hi > 1; hi -= n) {
+      const int lo = max(1, hi - n);
+      __syncthreads();
+      const PtrT* st = reinterpret_cast<const PtrT*>(
+          stage + copy_span(stage, sums + (size_t)lo * K,
+                            (hi - lo) * K * (int)sizeof(PtrT), blockDim.x,
+                            threadIdx.x));
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        for (int cc = hi - 1; cc >= lo; --cc) {
+          x = st[(size_t)(cc - lo) * K + x];
+          pr.xb[cc - 1] = x;
+        }
+      }
+    }
+  }
+  grid.sync();
+  mark(4);
+
+  // ---- part 5: each chunk walks backward ----------------------------------
+  if (live) {
+    int x = __ldcg(pr.xb + c);
+    for (int hi = b; hi > a; hi -= rows) {
+      const int lo = max(a, hi - rows);
+      const PtrT* st = stage_in(tm, tm.stage, maps + (size_t)lo * K,
+                                (hi - lo) * K, nthr, rank);
+      if (tm.leader()) {
+        for (int t = hi - 1; t >= lo; --t) {
+          x = st[(size_t)(t - lo) * K + x];
+          pr.states[t] = x;
+        }
       }
     }
   }
 }
 
-template <typename PtrT>
-cudaError_t launch_general(const float* em, const uint8_t* reset,
-                           const float* trans, const float* init, int T,
-                           int K, void* ptr, int32_t* amax, int32_t* states,
-                           cudaStream_t s) {
-  int nt = (K + 31) / 32 * 32;
-  if (nt > 1024) nt = 1024;
-  const bool tr_smem = K <= GK_TR_SMEM_MAX;
-  // the staging area serves the forward (G frames of K floats and a flag)
-  // and then the backtrack (F frames of K pointers, an argmax and a flag)
-  size_t stage = GK_STAGE_BYTES;
-  const size_t fwd_row = (size_t)K * sizeof(float) + 1;
-  const size_t bwd_row = (size_t)K * sizeof(PtrT) + 5;
-  if (fwd_row > stage) stage = fwd_row;
-  if (bwd_row > stage) stage = bwd_row;
-  const size_t smem = ((size_t)K + 64) * sizeof(float) +
-                      (tr_smem ? (size_t)K * K * sizeof(float) : 0) + stage;
-  const void* fn = (const void*)viterbi_general_kernel<PtrT>;
+template <class Team, typename PtrT, int THREADS_MAX>
+cudaError_t gk_launch(int blocks, int threads, size_t smem, cudaStream_t s,
+                      GkProblem pr) {
+  const void* fn = (const void*)gk_kernel<Team, PtrT, THREADS_MAX>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  viterbi_general_kernel<PtrT><<<1, nt, smem, s>>>(
-      em, reset, trans, init, T, K, tr_smem, reinterpret_cast<PtrT*>(ptr),
-      amax, states);
-  return cudaGetLastError();
+  void* args[] = {&pr};
+  return cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args,
+                                     smem, s);
 }
 
 }  // namespace
 
 // emission (T,K) f32, reset (T,) bool bytes, trans (K,K) f32, init (K,)
-// f32, 1 <= K <= 8192.  Scratch: ptr (T,K) uint8 when K <= 256, else
-// uint16; amax (T,) int32.  states (T,) int32 out.  Returns the launch's
-// cudaError_t.
+// f32, 1 <= K <= 8192; L frames a chunk (the wrapper's plan: P = ceil(T /
+// L) chunks, at most 8 a block for K <= 32, else one, and at most
+// max_blocks blocks, one per SM).  Scratch: rows (T,K) f32, exits (3,P,K)
+// f32, maps (T,K) and sums (P,K) uint8 when K <= 256, else uint16, xb (P,)
+// int32, ctl (16,) int32; after the run ctl[3] is the pass count, ctl[4]
+// the chunks walked, ctl[5] P, ctl[6] L, ctl[8..12] the part times (ns).  states (T,) int32 out.  Returns the
+// launch's cudaError_t.
 extern "C" int iss_viterbi_general(const float* em, const uint8_t* reset,
                                    const float* trans, const float* init,
-                                   long long T, int K, void* ptr,
-                                   int32_t* amax, int32_t* states,
-                                   void* stream) {
-  if (T <= 0 || T > INT_MAX || K < 1 || K > GK_MAX ||
+                                   long long T, int K, int L, int max_blocks,
+                                   float* rows, float* exits, void* maps,
+                                   void* sums, int32_t* xb, int32_t* ctl,
+                                   int32_t* states, void* stream) {
+  if (T <= 0 || T > INT_MAX / 2 || K < 1 || K > GK_MAX || L < 1 ||
+      max_blocks < 1 || max_blocks > 1024 ||
       (K + 1023) / 1024 > GK_PER_THREAD) {
     return (int)cudaErrorInvalidValue;
   }
+  const int P = (int)((T + L - 1) / L);
+  const int per_block = K <= 32 ? GK_WARPS : 1;
+  const int blocks = (P + per_block - 1) / per_block;
+  if (blocks > max_blocks || (long long)(P - 1) * L >= T) {
+    return (int)cudaErrorInvalidValue;
+  }
+  GkProblem pr{em, reset, trans, init, (int)T, K, L, P, rows, exits, maps,
+               sums, xb, ctl, states};
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err =
-      K <= 256 ? launch_general<uint8_t>(em, reset, trans, init, (int)T, K,
-                                         ptr, amax, states, s)
-               : launch_general<uint16_t>(em, reset, trans, init, (int)T, K,
-                                          ptr, amax, states, s);
-  return (int)err;
+  cudaError_t err;
+  if (K <= 32) {
+    const size_t smem = GK_WARPS * 64 * sizeof(float) + GK_STAGE + 16 +
+                        GK_WARPS * 33 * sizeof(int);
+    const int nt = 32 * GK_WARPS;
+    if (K <= 8) {
+      err = gk_launch<WarpTeam<8>, uint8_t, 256>(blocks, nt, smem, s, pr);
+    } else if (K <= 16) {
+      err = gk_launch<WarpTeam<16>, uint8_t, 256>(blocks, nt, smem, s, pr);
+    } else {
+      err = gk_launch<WarpTeam<32>, uint8_t, 256>(blocks, nt, smem, s, pr);
+    }
+  } else {
+    int nt = (K + 31) / 32 * 32;
+    if (nt > 1024) nt = 1024;
+    const size_t smem = block_stage_offset(K) + GK_STAGE +
+                        (K <= GK_TR_SMEM_MAX ? (size_t)K * K * sizeof(float)
+                                             : 0);
+    if (K <= 256) {
+      err = gk_launch<BlockTeam<1>, uint8_t, 1024>(blocks, nt, smem, s, pr);
+    } else if (K <= 1024) {
+      err = gk_launch<BlockTeam<1>, uint16_t, 1024>(blocks, nt, smem, s, pr);
+    } else {
+      err = gk_launch<BlockTeam<GK_PER_THREAD>, uint16_t, 1024>(
+          blocks, nt, smem, s, pr);
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@ a frame loop in numpy float32 with the same operations in the same order,
 for CPU tensors.  States are bit-equal between the two and to the JAX scan.
 That kernel takes K <= 3 states; :func:`viterbi_scan` sends more states to
 :func:`viterbi_scan_general`, the wrapper of the general-K kernel in the
-same source (one block, threads over the states, serial in T).
+same source (a values-only chain, chunk-parallel where the rows converge).
 
 :func:`viterbi_decoding` is the reference's constrained API (initial,
 minimum durations by state duplication, forbidden / mandatory frames;
@@ -31,12 +31,16 @@ from ..utils.device import resolve_device
 
 K_MAX = 3            # states of the chunk-parallel kernel
 K_GENERAL_MAX = 8192  # states of the general-K kernel
+CHUNK_MIN = 16       # csrc/viterbi.cu's: frames a chunk, at least (asked)
+GK_WARPS = 8         # csrc/viterbi.cu's: warp teams a block, K <= 32
 
 VITERBI_CONSTRAINT_NONE = 0
 VITERBI_CONSTRAINT_FORBIDDEN = 1
 VITERBI_CONSTRAINT_MANDATORY = 2
 
 LOG_ZERO = float(np.log(1e-200))
+
+_LAST = {"ctl": None}   # the ctl words of the last launch of either kernel
 
 
 def viterbi_scan_plain(emission, transition, initial, reset):
@@ -106,8 +110,8 @@ def viterbi_scan(emission, transition, initial, reset):
 
     On CUDA, K <= 3 runs the chunk-parallel kernel, which spreads chunks of
     the sequence over a cooperative grid of one block per SM
-    (:func:`pass_count` and :func:`walked_chunks` describe its last
-    launch); K > 3 runs :func:`viterbi_scan_general`.
+    (:func:`pass_count` and :func:`walked_chunks` describe the last
+    launch of either kernel); K > 3 runs :func:`viterbi_scan_general`.
     """
     if emission.device.type == "cpu":
         return viterbi_scan_plain(emission, transition, initial, reset)
@@ -140,7 +144,7 @@ def viterbi_scan(emission, transition, initial, reset):
             states.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("viterbi", rc)
     cuda_build.count_launch(viterbi_scan)
-    viterbi_scan.last_ctl = ctl
+    viterbi_scan.last_ctl = _LAST["ctl"] = ctl
     return states
 
 
@@ -148,11 +152,25 @@ viterbi_scan.launches = 0
 viterbi_scan.last_ctl = None
 
 
+def general_plan(T, K, blocks):
+    """The general-K kernel's chunks on ``blocks`` blocks (one per SM) ->
+    (chunks asked, frames a chunk L, chunks P = ceil(T / L)).  A chunk has
+    one team: a warp for K <= 32 (``GK_WARPS`` a block), else a block."""
+    teams = blocks * (GK_WARPS if K <= 32 else 1)
+    asked = max(1, min(teams, -(-T // CHUNK_MIN)))
+    L = -(-T // asked)
+    return asked, L, -(-T // L)
+
+
 def viterbi_scan_general(emission, transition, initial, reset):
     """:func:`viterbi_scan` at any K (1..``K_GENERAL_MAX``): the general-K
-    kernel for CUDA tensors, one block whose threads stride over the states
-    (back-pointers one byte a state a frame, two above 256 states), and
-    :func:`viterbi_scan_plain` for CPU tensors.  Has its own launch count.
+    kernel for CUDA tensors, and :func:`viterbi_scan_plain` for CPU
+    tensors.  The kernel runs a values-only forward chain, chunk-parallel
+    where the rows converge and a serial walk where they do not, then the
+    back-pointers off the chain and a backtrack by map composition, all in
+    one cooperative launch (``csrc/viterbi.cu``).  Has its own launch count;
+    :func:`pass_count` and :func:`walked_chunks` describe its last launch
+    when it was the last of the two kernels to run.
     """
     if emission.device.type == "cpu":
         return viterbi_scan_plain(emission, transition, initial, reset)
@@ -162,38 +180,53 @@ def viterbi_scan_general(emission, transition, initial, reset):
     states = torch.empty((T,), dtype=torch.int32, device=dev)
     if T == 0:
         return states
-    ptr = torch.empty((T, K), dtype=torch.uint8 if K <= 256 else torch.int16,
-                      device=dev)
-    amax = torch.empty((T,), dtype=torch.int32, device=dev)
+    blocks = _max_blocks(dev)
+    _, L, P = general_plan(T, K, blocks)
+    index = torch.uint8 if K <= 256 else torch.int16
+    rows = torch.empty((T, K), dtype=torch.float32, device=dev)
+    exits = torch.empty((3, P, K), dtype=torch.float32, device=dev)
+    maps = torch.empty((T, K), dtype=index, device=dev)
+    sums = torch.empty((P, K), dtype=index, device=dev)
+    xb = torch.empty((P,), dtype=torch.int32, device=dev)
+    ctl = torch.empty((16,), dtype=torch.int32, device=dev)
     lib = cuda_build.library()
     with torch.cuda.device(dev):
         rc = lib.iss_viterbi_general(
             emission.data_ptr(), reset.data_ptr(), transition.data_ptr(),
-            initial.data_ptr(), T, K, ptr.data_ptr(), amax.data_ptr(),
-            states.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            initial.data_ptr(), T, K, L, blocks, rows.data_ptr(),
+            exits.data_ptr(), maps.data_ptr(), sums.data_ptr(),
+            xb.data_ptr(), ctl.data_ptr(), states.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("viterbi_general", rc)
     cuda_build.count_launch(viterbi_scan_general)
+    viterbi_scan_general.last_ctl = _LAST["ctl"] = ctl
     return states
 
 
 viterbi_scan_general.launches = 0
+viterbi_scan_general.last_ctl = None
 
 
 def pass_count():
-    """Forward passes of the last kernel launch (the speculative one
-    included), a plain int; waits for that launch to finish."""
-    ctl = viterbi_scan.last_ctl
+    """Forward passes of the last Viterbi kernel launch (the speculative
+    one included), a plain int; waits for that launch to finish."""
+    ctl = _LAST["ctl"]
     return None if ctl is None else int(ctl[3].item())
 
 
 def walked_chunks():
     """Chunks that the last launch's serial walk re-ran (0 when its passes
     converged), a plain int; waits for that launch to finish."""
-    ctl = viterbi_scan.last_ctl
+    ctl = _LAST["ctl"]
     return None if ctl is None else int(ctl[4].item())
 
 
-def viterbi_path(emission, transition, initial=None, reset=None):
+# the JAX package's decode modes; each is decoded here with the exact scan
+_PARALLEL_MODES = (False, True, "scan", "parallel", "blocked")
+
+
+def viterbi_path(emission, transition, initial=None, reset=None,
+                 parallel=False):
     """Most probable state path, with optional independent-segment resets.
 
     :param emission: (T, K) log-emissions (array-like or tensor).
@@ -201,9 +234,15 @@ def viterbi_path(emission, transition, initial=None, reset=None):
     :param initial: optional (K,) log-initial; defaults to uniform.
     :param reset: optional (T,) bool; True at frames that start a new
         independent segment (frame 0 is always a segment start).
+    :param parallel: the JAX package's mode argument (False, True,
+        ``'scan'``, ``'parallel'`` or ``'blocked'``); any other value
+        raises ``KeyError`` as there.  Every mode runs the exact decode,
+        whose states equal the JAX ``'scan'`` decode's.
     :return: (T,) int32 state tensor on the emission's device (the CPU
         for array-likes).
     """
+    if parallel not in _PARALLEL_MODES:
+        raise KeyError(parallel)
     device = (emission.device if isinstance(emission, torch.Tensor)
               else torch.device("cpu"))
 

@@ -116,9 +116,11 @@ _SIGNATURES = {
     #  ctl, states, stream)
     "iss_viterbi": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, _P, _P, _P, _P, _P, _P],
-    # (emission, reset, trans, init, T, K, ptr, amax, states, stream)
+    # (emission, reset, trans, init, T, K, L, max_blocks, rows, exits, maps,
+    #  sums, xb, ctl, states, stream)
     "iss_viterbi_general": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                            _P, _P, _P, _P],
+                            ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+                            _P, _P, _P],
 }
 
 

@@ -11,7 +11,10 @@ Features: finite masks equal, mspec within rtol/atol 1e-4, loge within
 Viterbi: states bit-equal, including exact ties, -inf and NaN scores and
 emissions that never coalesce (which the kernel's serial walk finishes);
 the general-K kernel (K > 3, and K <= 3 through its own wrapper) bit-equal
-to the plain loop at K from 4 to 1,100, with resets, ties and NaN rows.
+to the plain loop at K from 4 to 8,192, with resets, ties and NaN rows, on
+the never-converging uniform ``consecutive=10`` expansion at T = 180,000,
+and with the pass and walk counts of its numpy model
+(``tests/viterbi_general_model.py``) at the kernel's own chunking.
 
 The VFS path has no hand kernel; its cases hold the CUDA run of the plain
 PyTorch code (cuDNN / cuBLAS, TF32 off) against the CPU run: VBx features
@@ -50,6 +53,9 @@ from inaspeechsegmenter_tpu_torch.decode.transitions import diag_trans_exp
 from inaspeechsegmenter_tpu_torch.dsp import fe_kernel, sidekit
 from torch_parity_helpers import (int16_grid_on_cpu, kernel_constant,
                                   speechlike, to_int16, voiced)
+from viterbi_general_model import (chunk_parallel_viterbi_general,
+                                   constant_case, consecutive_case,
+                                   constrained_case, dense_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -553,12 +559,78 @@ def test_viterbi_general_kernel_bit_equal(dev, K, kind):
 
 
 @pytest.mark.parametrize("K,T", [(1, 50), (2, 4000), (3, 4000), (205, 300),
-                                 (300, 200), (1100, 40), (30, 180_000)])
+                                 (300, 200), (1100, 40), (30, 180_000),
+                                 (32, 180_000)])
 def test_viterbi_general_kernel_other_shapes(dev, K, T):
     """K <= 3 through the general wrapper; the transition matrix outside
-    shared memory (K > 204); two-byte pointers (K > 256); several states a
-    thread (K > 1024); the main path's length."""
+    shared memory (K > 200); two-byte maps (K > 256); several states a
+    thread (K > 1024); the main path's length, and at K = 32 summaries that
+    outgrow block 0's staging area (chained a tile at a time)."""
     args, want = _viterbi_case(K, "resets" if K > 1 else "random", T, dev)
+    got = tv.viterbi_scan_general(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _general_inputs(kind, T):
+    return {"consecutive=10": lambda: consecutive_case((10, 10, 10), T),
+            "constant": lambda: constant_case(30, T),
+            "dense": lambda: dense_case(30, T),
+            "constrained": lambda: constrained_case(8, T)}[kind]()
+
+
+def _on(dev, arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("kind", ["consecutive=10", "constant", "dense",
+                                  "constrained"])
+def test_viterbi_general_counts_match_the_model(dev, kind):
+    """States, passes and walked chunks equal the numpy model's at the
+    kernel's own chunking; the two never-converging inputs run the passes
+    to the cap and walk every chunk that they did not reach."""
+    T = 20_000
+    arrays = _general_inputs(kind, T)
+    got = tv.viterbi_scan_general(*_on(dev, arrays))
+    torch.cuda.synchronize()
+    counts = (tv.pass_count(), tv.walked_chunks())
+    K = arrays[0].shape[1]
+    asked, L, P = tv.general_plan(T, K, tv._max_blocks(dev))
+    ctl = tv.viterbi_scan_general.last_ctl.cpu().numpy()
+    assert (ctl[5], ctl[6]) == (P, L)
+    want, passes, walked = chunk_parallel_viterbi_general(*arrays, asked)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert counts == (passes, walked)
+    if kind in ("consecutive=10", "constant"):
+        assert counts == (PASS_CAP + 1, P - PASS_CAP - 1)
+    else:
+        assert walked == 0 and passes <= 8
+
+
+def test_viterbi_general_consecutive_at_the_main_path_length(dev):
+    """The smoke's decode, consecutive=10 on 3 states (K = 30), T = 180,000:
+    it never converges, so the walk takes all but the cap's chunks."""
+    args = _on(dev, consecutive_case((10, 10, 10), 180_000))
+    got = tv.viterbi_scan_general(*args)
+    want = tv.viterbi_scan_plain(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    P = int(tv.viterbi_scan_general.last_ctl[5])
+    assert (tv.pass_count(), tv.walked_chunks()) == (PASS_CAP + 1,
+                                                     P - PASS_CAP - 1)
+
+
+@pytest.mark.parametrize("K", [4, 30, 33])
+def test_viterbi_general_never_converging_constant(dev, K):
+    args, want = _viterbi_case(K, "constant", 30_000, dev)
+    got = tv.viterbi_scan(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert tv.pass_count() == PASS_CAP + 1 and tv.walked_chunks() > 0
+
+
+def test_viterbi_general_kernel_largest_k(dev):
+    """K = K_GENERAL_MAX (8 states a thread of a 1,024-thread block, the
+    transitions read from device memory, two-byte maps) at a small T."""
+    args, want = _viterbi_case(tv.K_GENERAL_MAX, "resets", 12, dev)
     got = tv.viterbi_scan_general(*args)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
 
