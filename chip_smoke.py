@@ -108,12 +108,29 @@ Phases, each fatal on failure (non-zero exit, no final line):
    frames differing; whether the lseg are equal is printed); (f) a 44.1
    kHz PCM16 WAV with ``ffmpeg=None`` through the native resampler (built
    with the host C++ compiler), the frames differing from the 16 kHz
-   labels printed.
+   labels printed;
+7. train, score, farm: (a) the 10 min mix segmented by phase 2's
+   Segmenter and exported as csv; ``train.patch_dataset`` of it on cuda
+   (seconds, patches, one features launch) against the cpu dataset
+   (patches within 1e-4, labels equal); a ``Trainer`` on the full-width
+   smn CNN at ``highest``, batch 256: the first 3 steps' losses against
+   the cpu trainer's on the same batches (rtol 1e-3), then 60 steps in
+   all (ms a step, patches/s, peak memory; the loss must fall), 5 more
+   under ``torch.profiler`` (the device's busy share, the top kernels), a
+   held-out accuracy; ``export_model`` into a fresh model directory, a
+   cuda ``Segmenter`` built from it without the synthetic warning, serving
+   the 60 s mix; (b) that csv against the cpu Segmenter's with
+   ``eval.evaluate`` (at most 0.1% of frames differing) and with
+   ``cli.evaluate``; (c) a ``JobServer`` over phase 2's WAVs (duplicate
+   rows in its csv) drained by ``client_work_loop`` with phase 2's
+   Segmenter (csvs byte-equal to phase 2's, wall time), a second run that
+   skips every file, and one ``--vfs`` job through ``cli.client`` on the
+   60 s mix (its row equal to phase 3's).
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-6, launches per file for
-segmentation, VFS, the online segmenter, the ffmpeg decode and each run
-of phase 6, ``bound_ms``: the larger of the
+summed over the main-path runs of phases 2-7, launches per file for
+segmentation, VFS, the online segmenter, the ffmpeg decode, each run
+of phase 6 and phase 7's train and farm paths, ``bound_ms``: the larger of the
 bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
 card's name and power limit; the last line is the JSON result.  Every time
 is on the card that line names.  Imports nothing of JAX.
@@ -122,6 +139,7 @@ is on the card that line names.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -1816,6 +1834,274 @@ def phase_reference(torch, dev, workdir, seg, vfs, files, wavs, models,
                    "resampled_wav": per_resampled}
 
 
+# --------------------------------------------------------------------------
+TRAIN_BATCH = 256
+TRAIN_STEPS = 60               # steps of the card's run (the 10 min mix)
+TRAIN_CPU_STEPS = 3            # steps held against the CPU
+TRAIN_LOSS_RTOL = 1e-3         # cuda vs cpu losses of the first steps
+PATCH_ATOL = 1e-4              # cuda vs cpu patches: the features tolerance
+
+
+def phase_train(torch, dev, workdir, seg, files, wavs, models):
+    """7(a): annotate -> patch_dataset -> Trainer -> export -> serve on the
+    card.  -> kernel launches of the path (dataset and serving)."""
+    from inaspeechsegmenter_tpu_torch import Segmenter, seg2csv
+    from inaspeechsegmenter_tpu_torch.models.registry import load_patch_model
+    from inaspeechsegmenter_tpu_torch.train import (ENGINES, Trainer,
+                                                    patch_dataset)
+
+    wav = wavs[list(files).index("mix600")]
+    annot = os.path.join(workdir, "annot", "mix600.csv")
+    os.makedirs(os.path.dirname(annot))
+    seg2csv(seg(wav), annot)
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    x, y = patch_dataset([(wav, annot)], "smn", ffmpeg=None, device=dev)
+    ds_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    t0 = time.perf_counter()
+    xc, yc = patch_dataset([(wav, annot)], "smn", ffmpeg=None, device="cpu")
+    ds_cpu_s = time.perf_counter() - t0
+    check(x.shape == xc.shape and (y == yc).all(),
+          f"cuda and cpu datasets differ in shape {x.shape} {xc.shape} or "
+          "labels")
+    x_err = float(np.abs(x - xc).max())
+    counts = dict(zip(ENGINES["smn"][0],
+                      np.bincount(y, minlength=3).tolist()))
+    log(f"[train] patch_dataset of the 10 min mix (smn): {len(x)} patches "
+        f"{x.shape[1:]}, classes {counts}, "
+        f"cuda {ds_s!r} s (cpu {ds_cpu_s!r} s), launches {launches}; "
+        f"cuda vs cpu max_abs_err={x_err!r} (atol {PATCH_ATOL}), labels equal")
+    check(x_err <= PATCH_ATOL, "cuda and cpu patches differ")
+    check(launches["sidekit_fe"] == 1, "the dataset skipped the kernel")
+    del xc, yc
+
+    model = load_patch_model("keras_speech_music_noise_cnn.hdf5", models)
+    trainer = Trainer(model.spec, model.params, device=dev)
+    check(trainer.precision == "highest", f"tier {trainer.precision}")
+    order = np.random.default_rng(0).permutation(len(x))
+    n = min(len(x), TRAIN_STEPS * TRAIN_BATCH)
+    xs, ys = x[order[:n]], y[order[:n]]
+    first = trainer.fit(xs[:TRAIN_CPU_STEPS * TRAIN_BATCH],
+                        ys[:TRAIN_CPU_STEPS * TRAIN_BATCH],
+                        batch_size=TRAIN_BATCH, shuffle_seed=1)
+    cpu = Trainer(model.spec, model.params, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.fit(xs[:TRAIN_CPU_STEPS * TRAIN_BATCH],
+                   ys[:TRAIN_CPU_STEPS * TRAIN_BATCH],
+                   batch_size=TRAIN_BATCH, shuffle_seed=1)
+    cpu_ms = (time.perf_counter() - t0) / TRAIN_CPU_STEPS * 1e3
+    rel = float(np.max(np.abs(np.subtract(first, want)) / np.abs(want)))
+    log(f"[train] first {TRAIN_CPU_STEPS} steps' losses cuda {first} cpu "
+        f"{want}: max rel diff {rel!r} (rtol {TRAIN_LOSS_RTOL}); cpu "
+        f"{cpu_ms!r} ms a step")
+    check(rel <= TRAIN_LOSS_RTOL, "cuda and cpu losses differ")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rest = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_CPU_STEPS * TRAIN_BATCH, n - TRAIN_BATCH + 1,
+                   TRAIN_BATCH):
+        rest.append(trainer.train_step(xs[i:i + TRAIN_BATCH],
+                                       ys[i:i + TRAIN_BATCH]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / len(rest) * 1e3
+    losses = first + rest
+    head = float(np.mean(losses[:5]))
+    tail = float(np.mean(losses[-5:]))
+    log(f"[train] {len(losses)} steps at batch {TRAIN_BATCH} (size=full "
+        f"smn CNN, {trainer.precision}): {step_ms!r} ms a step (host clock "
+        f"over {len(rest)} steps, each ending in a sync), "
+        f"{TRAIN_BATCH / step_ms * 1e3!r} patches/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()!r} B; loss mean of the first 5 "
+        f"{head!r}, of the last 5 {tail!r}; losses {losses}")
+    check(np.isfinite(losses).all() and tail < head,
+          "the training loss did not decrease")
+    profile_steps(torch, trainer, xs, ys)
+    acc = trainer.evaluate(x[order[n:n + 4096]], y[order[n:n + 4096]])
+    log(f"[train] held-out accuracy on {min(4096, len(x) - n)} patches "
+        f"{acc!r}")
+
+    trained = os.path.join(workdir, "trained_models")
+    os.makedirs(trained)
+    trainer.export_model(os.path.join(trained,
+                                      "keras_speech_music_noise_cnn.npz"))
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")         # the synthetic warning
+        served = Segmenter("smn", False, ffmpeg=None, device=dev,
+                           model_dir=trained, allow_download=False)
+        served_cpu = Segmenter("smn", False, ffmpeg=None, device="cpu",
+                               model_dir=trained, allow_download=False)
+    mix60 = wavs[list(files).index("mix60")]
+    reset_kernel_counts()
+    lseg = served(mix60)
+    serve_launches = kernel_counts()
+    check_segmentation_launches(serve_launches, "serving the trained model")
+    lseg_cpu = served_cpu(mix60)
+    labels = sorted({r[0] for r in lseg})
+    log(f"[train] the trained model serves mix60: {len(lseg)} segments, "
+        f"labels {labels}, launches {serve_launches}")
+    return ({k: launches[k] + serve_launches[k] for k in launches},
+            lseg, lseg_cpu)
+
+
+def profile_steps(torch, trainer, xs, ys, steps=5):
+    """``steps`` more training steps under ``torch.profiler``: the device's
+    busy share of the wall time and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [(xs[i:i + TRAIN_BATCH], ys[i:i + TRAIN_BATCH])
+               for i in range(0, steps * TRAIN_BATCH, TRAIN_BATCH)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for xb, yb in batches:
+            trainer.train_step(xb, yb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # user annotations (the optimizer's step range) span kernels already
+    # counted: only kernels and copies count towards the busy time
+    kernels = sorted(
+        ((e.self_device_time_total, e.count, e.key)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+         and not e.is_user_annotation), reverse=True)
+    busy = sum(k[0] for k in kernels) / 1e3
+    if not busy:
+        log("[train] the profiler saw no device time")
+        return
+    top = [(f"{t / 1e3 / steps:.3f} ms", n // steps, name[:70])
+           for t, n, name in kernels[:6]]
+    launches = sum(k[1] for k in kernels) / steps
+    log(f"[train] profile of {steps} steps: wall {wall * 1e3 / steps!r} ms a "
+        f"step (profiler on), device busy {busy / steps!r} ms a step "
+        f"({100 * busy / (wall * 1e3):.1f}%), {launches!r} kernel launches "
+        f"a step under {len(kernels)} names; "
+        f"top kernels (ms a step, launches a step, name): {top}")
+
+
+def phase_score(lseg, lseg_cpu, workdir):
+    """7(b): the trained model's cuda csv against its cpu csv, with the
+    port's scorer and its CLI."""
+    from inaspeechsegmenter_tpu_torch import eval as ev
+    from inaspeechsegmenter_tpu_torch import seg2csv
+    from inaspeechsegmenter_tpu_torch.cli import evaluate
+
+    dirs = [os.path.join(workdir, "score", d) for d in ("cuda", "cpu")]
+    for d, ls in zip(dirs, (lseg, lseg_cpu)):
+        os.makedirs(d)
+        seg2csv(ls, os.path.join(d, "mix60.csv"))
+    rep = ev.evaluate(*(os.path.join(d, "mix60.csv") for d in dirs))
+    n_fr = int(round(rep["scored_duration"] / ev.FRAME_DUR))
+    n_diff = int(round(rep["frame_diff"] * n_fr))
+    log(f"[score] trained model mix60 cuda vs cpu: {n_diff} of {n_fr} "
+        f"frames differ (frame_diff {rep['frame_diff']!r}), accuracy "
+        f"{rep['accuracy']!r}, boundaries {rep['boundaries']}")
+    check(rep["frame_diff"] <= 0.001, "cuda and cpu labels differ on >0.1%")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(evaluate.main(["-r", dirs[1], "-y", dirs[0], "--json"]) == 0,
+              "cli.evaluate failed")
+    corpus = json.loads(buf.getvalue())["corpus"]
+    log(f"[score] cli.evaluate cpu -> cuda: corpus frame_diff "
+        f"{corpus['frame_diff']!r}, vad {corpus['vad']}")
+    check(corpus["frame_diff"] == rep["frame_diff"],
+          "cli.evaluate and eval.evaluate disagree")
+
+
+def phase_farm(torch, dev, workdir, seg, files, wavs, models):
+    """7(c): the job farm on the card: a JobServer over phase 2's WAVs
+    (with duplicate rows), the port's worker loop with phase 2's
+    Segmenter, a second run that skips every file, and one ``--vfs`` job
+    through ``cli.client``.  -> kernel launches of the farm's runs."""
+    from inaspeechsegmenter_tpu_torch.cli import client
+    from inaspeechsegmenter_tpu_torch.parallel import (JobServer,
+                                                       client_work_loop)
+
+    farm = os.path.join(workdir, "farm")
+    os.makedirs(farm)
+    jobs = os.path.join(workdir, "farm_jobs.csv")
+    with open(jobs, "w") as fh:
+        fh.write("source_path,dest_path\n")
+        for w in wavs + wavs[:2]:                  # two duplicate rows
+            fh.write(f" {w} , {os.path.join(farm, os.path.basename(w)[:-4])}"
+                     ".csv\n")
+    server = JobServer(jobs)
+    check(len(server.lsource) == len(wavs), "the jobs were not de-duplicated")
+    tcp, uri = server.serve(host="127.0.0.1", port=0)
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        _, n_ok, _, lmsg = client_work_loop(uri, seg, hostname="card")
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        check(n_ok == len(wavs), f"farm statuses {lmsg}")
+        check_segmentation_launches(launches, "the farm")
+        for w in wavs:
+            name = os.path.basename(w)[:-4] + ".csv"
+            with open(os.path.join(farm, name), "rb") as a, \
+                    open(os.path.join(workdir, "out", name), "rb") as b:
+                check(a.read() == b.read(), f"farm csv {name} differs from "
+                      "phase 2's")
+        log(f"[farm] {len(wavs)} files through JobServer + client_work_loop "
+            f"on one worker: wall {wall!r} s, csvs byte-equal to phase 2's, "
+            f"launches {launches}")
+        server.set_jobs(jobs)
+        t0 = time.perf_counter()
+        _, n_ok, _, lmsg = client_work_loop(uri, seg, hostname="card")
+        log(f"[farm] second run: {n_ok} processed, statuses "
+            f"{[m[1] for m in lmsg]}, wall {time.perf_counter() - t0!r} s")
+        check(n_ok == 0 and all(m[1] == 1 for m in lmsg),
+              "the second run did not skip every file")
+
+        mix60 = wavs[list(files).index("mix60")]
+        dst = os.path.join(farm, "vfs", "mix60.csv")
+        os.makedirs(os.path.dirname(dst))
+        with open(jobs, "w") as fh:
+            fh.write(f"source_path,dest_path\n{mix60},{dst}\n")
+        server.set_jobs(jobs)
+        os.environ["ISS_TPU_MODEL_DIR"] = models
+        try:
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            client.main([uri, "--vfs", "--ffmpeg_binary", "none",
+                         "--device", str(dev)])
+            vfs_wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("ISS_TPU_MODEL_DIR")
+        vfs_launches = kernel_counts()
+        check_segmentation_launches(vfs_launches, "the farm's VFS job")
+        with open(dst) as fh:
+            got = fh.read()
+        with open(os.path.join(workdir, "vfs", "mix60.csv")) as fh:
+            want = fh.read()
+        log(f"[farm] one --vfs job through cli.client (scorer built in the "
+            f"call): wall {vfs_wall!r} s, row {got.splitlines()[1]!r}, "
+            f"launches {vfs_launches}")
+        check(got == want, f"the --vfs job's row differs from phase 3's "
+              f"{want.splitlines()[1]!r}")
+    finally:
+        tcp.shutdown()
+        tcp.server_close()
+    return {k: launches[k] + vfs_launches[k] for k in launches}
+
+
+def phase_train_score_farm(torch, dev, workdir, seg, files, wavs, models):
+    """Phase 7: train, score, farm."""
+    t0 = time.perf_counter()
+    per_train, lseg, lseg_cpu = phase_train(torch, dev, workdir, seg, files,
+                                            wavs, models)
+    phase_score(lseg, lseg_cpu, workdir)
+    per_farm = phase_farm(torch, dev, workdir, seg, files, wavs, models)
+    log(f"[phase 7] train, score, farm: {time.perf_counter() - t0!r} s")
+    return {"train": per_train, "farm": per_farm}
+
+
 def main():
     import torch
 
@@ -1852,6 +2138,8 @@ def main():
             torch, dev, workdir, seg, vfs, params, files, wavs, models)
         general, per_ref = phase_reference(torch, dev, workdir, seg, vfs,
                                            files, wavs, models, speech_rate)
+        per_ref.update(phase_train_score_farm(torch, dev, workdir, seg,
+                                              files, wavs, models))
     kernels.append(general)
     for k in kernels:
         name = k["name"]
@@ -1860,7 +2148,7 @@ def main():
         k["launches_per_file"] = {
             path: counts[name]
             for path, counts in {**earlier, **per_ref}.items()}
-        # the main-path runs of phases 2-6 (phase 1's comparisons excluded)
+        # the main-path runs of phases 2-7 (phase 1's comparisons excluded)
         k["launches"] = sum(c[name] for c in (
             launches, launches_vfs, per_online_file, launches_real,
             *per_ref.values()))

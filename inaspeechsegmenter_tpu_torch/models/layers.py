@@ -8,7 +8,10 @@ Dense, BatchNormalization (moving statistics), max and average pooling
 the global pools, Flatten, Reshape, Permute, ZeroPadding2D, the Activation,
 ReLU, LeakyReLU and Softmax layers, the identity layers (Dropout and kin),
 and the Add, Concatenate and Multiply merges.  Inference semantics only,
-as ``keras.Model.predict``.
+as ``keras.Model.predict`` (BatchNormalization reads its moving
+statistics, the dropout layers are identities), also when the weights are
+trainable parameters (``trainable=True``, the trainer's model) rather
+than buffers: the JAX package trains through the same inference layers.
 
 Layout: a rank-4 value is held channels-first (NCHW) inside a model, for
 cuDNN; every other rank keeps its Keras layout.  Layers that name a Keras
@@ -27,7 +30,8 @@ an empty value means the default):
   and less exact than it;
 - ``default`` / ``bf16``: bf16 operands with float32 accumulation; each
   conv and matmul returns float32, as JAX's ``DEFAULT`` returns f32.  The
-  bf16 weight copies are made when the layer is built.
+  bf16 weight copies are made when an inference layer is built, and at
+  each call in a trainable one.
 
 Convolutions and matmuls go to cuDNN / cuBLAS, as XLA ran them outside any
 Pallas kernel in the JAX package.
@@ -174,32 +178,48 @@ def _same_pad2d(x, kernel, stride, value=0.0):
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
 
 
+def _register(module, name, tensor, trainable):
+    """A weight array as a buffer (inference) or, with ``trainable``, as an
+    ``nn.Parameter`` (None stays None)."""
+    if trainable and tensor is not None:
+        module.register_parameter(name, nn.Parameter(tensor))
+    else:
+        module.register_buffer(name, tensor)
+
+
 class _Weighted(nn.Module):
-    """A conv or matmul layer at its precision tier: ``bf16`` keeps a bf16
-    copy of the weight and returns the product as float32; the bias is
-    added in float32."""
+    """A conv or matmul layer at its precision tier: ``bf16`` casts the
+    weight to bf16 and returns the product as float32; the bias is added in
+    float32.  An inference layer keeps its bf16 copy from construction; a
+    trainable one casts at each call, so the copy follows the weight that
+    the optimizer updates."""
 
     channel_dim = 1
 
-    def __init__(self, cfg, weight, bias, tier):
+    def __init__(self, cfg, weight, bias, tier, trainable=False):
         super().__init__()
         self.act = _activation(cfg.get("activation"))
-        self.register_buffer("weight", weight)
-        self.register_buffer("bias", bias)
+        self.tier = tier
+        _register(self, "weight", weight, trainable)
+        _register(self, "bias", bias, trainable)
         self.register_buffer(
-            "weight_bf16", weight.to(torch.bfloat16) if tier == "bf16"
-            else None)
+            "weight_bf16", weight.to(torch.bfloat16)
+            if tier == "bf16" and not trainable else None)
 
     def product(self, fn, x):
-        return tiered_product(fn, x, self.weight, self.bias, self.weight_bf16,
+        weight_bf16 = self.weight_bf16
+        if weight_bf16 is None and self.tier == "bf16":
+            weight_bf16 = self.weight.to(torch.bfloat16)
+        return tiered_product(fn, x, self.weight, self.bias, weight_bf16,
                               self.channel_dim)
 
 
 class Conv2D(_Weighted):
     """:param weight: (cout, cin, kh, kw) tensor; ``bias`` (cout,) or None."""
 
-    def __init__(self, cfg, weight, bias=None, tier="highest"):
-        super().__init__(cfg, weight, bias, tier)
+    def __init__(self, cfg, weight, bias=None, tier="highest",
+                 trainable=False):
+        super().__init__(cfg, weight, bias, tier, trainable)
         self.stride = _pair(cfg.get("strides", 1))
         self.dilation = _pair(cfg.get("dilation_rate", 1))
         self.padding = cfg.get("padding", "valid").upper()
@@ -221,8 +241,9 @@ class DepthwiseConv2D(_Weighted):
     """:param weight: (cin * depth_multiplier, 1, kh, kw), the grouped-conv
     form of the Keras (kh, kw, cin, depth_multiplier) kernel."""
 
-    def __init__(self, cfg, weight, bias=None, tier="highest"):
-        super().__init__(cfg, weight, bias, tier)
+    def __init__(self, cfg, weight, bias=None, tier="highest",
+                 trainable=False):
+        super().__init__(cfg, weight, bias, tier, trainable)
         self.stride = _pair(cfg.get("strides", 1))
         self.padding = cfg.get("padding", "valid").upper()
         if self.padding not in ("SAME", "VALID"):
@@ -240,8 +261,9 @@ class DepthwiseConv2D(_Weighted):
 class Conv1D(_Weighted):
     """Keras (B, W, C) values.  :param weight: (cout, cin, kw)."""
 
-    def __init__(self, cfg, weight, bias=None, tier="highest"):
-        super().__init__(cfg, weight, bias, tier)
+    def __init__(self, cfg, weight, bias=None, tier="highest",
+                 trainable=False):
+        super().__init__(cfg, weight, bias, tier, trainable)
         self.stride = _single(cfg.get("strides", 1))
         self.dilation = _single(cfg.get("dilation_rate", 1))
         self.padding = cfg.get("padding", "valid").upper()
@@ -272,16 +294,18 @@ class Dense(_Weighted):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm along the configured Keras axis."""
+    """Inference batch norm along the configured Keras axis.  With
+    ``trainable`` all four arrays, the moving statistics included, are
+    parameters, as the JAX trainer differentiates every array of a model."""
 
-    def __init__(self, cfg, gamma, beta, mean, var):
+    def __init__(self, cfg, gamma, beta, mean, var, trainable=False):
         super().__init__()
         axis = cfg.get("axis", -1)
         self.axis = int(axis[0] if isinstance(axis, (list, tuple)) else axis)
         self.eps = float(cfg.get("epsilon", 1e-3))
         for name, t in (("gamma", gamma), ("beta", beta), ("mean", mean),
                         ("var", var)):
-            self.register_buffer(name, t)
+            _register(self, name, t, trainable)
 
     def forward(self, x):
         shape = [1] * x.dim()

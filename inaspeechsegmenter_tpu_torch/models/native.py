@@ -11,7 +11,10 @@ is freed after the last layer that reads it.
 
 Weights come in the Keras layout (``read_h5``, ``load_native``, the JAX
 package's arrays); ``params_from_jax`` turns them into this module's
-tensors.  The native checkpoint helpers live in ``keras_h5.py`` and are
+tensors and ``params_to_jax`` back.  An inference model keeps them as
+buffers; ``ImportedModel(spec, params, trainable=True)`` makes every
+weight, bias and BatchNormalization array an ``nn.Parameter`` for the
+trainer.  The native checkpoint helpers live in ``keras_h5.py`` and are
 re-exported here.
 """
 
@@ -25,7 +28,7 @@ from . import layers as L
 from .keras_h5 import KerasImportError, load_native, read_h5, save_native
 
 __all__ = ["ImportedModel", "UnsupportedLayerError", "params_from_jax",
-           "save_native", "load_native"]
+           "params_to_jax", "save_native", "load_native"]
 
 
 class UnsupportedLayerError(KerasImportError, NotImplementedError):
@@ -78,6 +81,45 @@ def params_from_jax(spec, params):
     return out
 
 
+def params_to_jax(spec, tensors):
+    """This module's tensors -> the JAX package's (Keras-layout) numpy
+    arrays: the inverse of ``params_from_jax``.
+
+    :param tensors: ``{layer name: [tensor or None, ...]}`` as
+        ``params_from_jax`` returns them (or as ``ImportedModel.tensors``).
+    :return: ``{layer name: [arrays]}`` for the layers that hold arrays,
+        with the JAX package's list lengths: no entry for a disabled bias,
+        BatchNormalization scale or center.
+    """
+    _check_supported(spec)
+
+    def a(x):
+        return x.detach().cpu().numpy().astype(np.float32)
+
+    out = {}
+    for e in spec["layers"]:
+        name, cname, cfg = e["name"], e["class_name"], e["config"]
+        ts = tensors.get(name)
+        if not ts:
+            continue
+        if cname == "BatchNormalization":
+            out[name] = [a(t) for t in ts if t is not None]
+            continue
+        w, bias = ts
+        if cname == "Conv2D":
+            kernel = a(w.permute(2, 3, 1, 0))
+        elif cname == "DepthwiseConv2D":
+            m = int(cfg.get("depth_multiplier", 1))
+            kh, kw = w.shape[2:]
+            kernel = a(w[:, 0].permute(1, 2, 0)).reshape(kh, kw, -1, m)
+        elif cname == "Conv1D":
+            kernel = a(w.permute(2, 1, 0))
+        else:                                   # Dense
+            kernel = a(w.T)
+        out[name] = [kernel] + ([a(bias)] if bias is not None else [])
+    return out
+
+
 class ImportedModel(nn.Module):
     """A Keras model imported to PyTorch: ``spec``, Keras-layout
     ``params`` and the module that runs them.
@@ -87,9 +129,14 @@ class ImportedModel(nn.Module):
     ``ISS_CNN_PRECISION`` names at construction (``layers.cnn_precision``),
     inside ``layers.precision_scope``: the TF32 flags are set for the
     forward and restored after it, never changed process-wide.
+
+    :param trainable: hold every weight, bias and BatchNormalization array
+        (the moving statistics too) as an ``nn.Parameter``; the bf16 tier
+        then casts each weight at call time.  The default keeps them as
+        buffers with the bf16 copies made once.
     """
 
-    def __init__(self, spec, params):
+    def __init__(self, spec, params, *, trainable=False):
         super().__init__()
         _check_supported(spec)
         self.spec = spec
@@ -116,7 +163,7 @@ class ImportedModel(nn.Module):
                     f"layer {name!r} reads unknown layers {missing}")
             plan.append((name, len(mods), cname in L.MERGES, srcs))
             mods.append(_build_layer(cname, cfg, tensors[name],
-                                     self.precision))
+                                     self.precision, trainable))
             known.add(name)
             prev = name
         self.outputs = list(spec.get("outputs") or [prev])
@@ -140,6 +187,20 @@ class ImportedModel(nn.Module):
 
     def save_native(self, path):
         save_native(path, self.spec, self.params)
+
+    def tensors(self):
+        """``{layer name: [weight, bias]}`` for the conv and matmul layers
+        and ``[gamma, beta, mean, var]`` for BatchNormalization (None where
+        disabled): this model's own tensors, in ``params_from_jax``'s
+        form."""
+        out = {}
+        for name, index, _, _ in self._plan:
+            layer = None if index is None else self.layers[index]
+            if isinstance(layer, L.BatchNorm):
+                out[name] = [layer.gamma, layer.beta, layer.mean, layer.var]
+            elif isinstance(layer, tuple(L.WEIGHTED.values())):
+                out[name] = [layer.weight, layer.bias]
+        return out
 
     @property
     def output_dim(self):
@@ -166,11 +227,12 @@ class ImportedModel(nn.Module):
         return outs[0] if len(outs) == 1 else outs
 
 
-def _build_layer(cname, cfg, tensors, tier):
+def _build_layer(cname, cfg, tensors, tier, trainable):
     if cname in L.WEIGHTED:
-        return L.WEIGHTED[cname](cfg, *tensors, tier=tier)
+        return L.WEIGHTED[cname](cfg, *tensors, tier=tier,
+                                 trainable=trainable)
     if cname == "BatchNormalization":
-        return L.BatchNorm(cfg, *tensors)
+        return L.BatchNorm(cfg, *tensors, trainable=trainable)
     if cname in L.MERGES:
         return L.MERGES[cname](cfg)
     return L.PLAIN[cname](cfg)

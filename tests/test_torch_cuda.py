@@ -42,6 +42,17 @@ and the online ``finalize()`` against ``segment_signal`` with at most 0.1%
 of the frames differing (the CNN runs in batches of other sizes, which
 cuDNN may take another algorithm for); the prefetched ``batch_process``
 csvs equal to one call of the Segmenter per file.
+
+Training: the trainer's gradients at ``highest`` on the card against the
+CPU's with the process's TF32 flags left on (PyTorch's cuDNN default), so
+a backward outside the step's precision scope would show as TF32 error:
+each array within 1e-4 of its largest magnitude; the first ``fit`` losses
+within rtol 1e-3 of the CPU's and the exported model serving on the card
+without the synthetic warning; at ``bf16`` the trainer's forward after a
+step equal to an inference model's built from the updated parameters; and
+``patch_dataset`` on the card against the CPU (patches within atol 1e-4,
+the features tolerance; labels and times equal; one features launch a
+file).
 """
 
 import numpy as np
@@ -767,3 +778,103 @@ def test_batch_score_shared_pcm_in_producer_threads(dev, small_models,
         assert open(out).read().splitlines()[1] == "%s\t%s\t%d" % (
             "" if want[0] is None else repr(float(want[0])),
             repr(float(want[1])), want[2])
+
+
+# -- training ----------------------------------------------------------------
+
+def _train_batch(n=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, 68, 21, 1)).astype(np.float32),
+            rng.integers(0, 3, n).astype(np.int32))
+
+
+def _grads(trainer):
+    from inaspeechsegmenter_tpu_torch.models.native import params_to_jax
+
+    return params_to_jax(trainer.model.spec, {
+        k: [None if t is None else t.grad for t in ts]
+        for k, ts in trainer.model.tensors().items()})
+
+
+def test_trainer_gradients_at_highest_match_cpu(dev, monkeypatch):
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+    from inaspeechsegmenter_tpu_torch.train import Trainer
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    spec, params = build_patch_cnn(21, 3, seed=0, size="full")
+    x, y = _train_batch()
+    runs = {}
+    for d in (dev, "cpu"):
+        t = Trainer(spec, params, learning_rate=0.0, device=d)
+        assert t.precision == "highest"
+        runs[d] = (t.train_step(x, y), _grads(t))
+    assert runs[dev][0] == pytest.approx(runs["cpu"][0], rel=1e-5)
+    for k, want in runs["cpu"][1].items():
+        for g, w in zip(runs[dev][1][k], want):
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-4 * np.abs(w).max())
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_trainer_fit_matches_cpu_and_serves(dev, tmp_path):
+    import warnings
+
+    from inaspeechsegmenter_tpu_torch import Segmenter
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+    from inaspeechsegmenter_tpu_torch.train import Trainer
+
+    spec, params = build_patch_cnn(21, 3, seed=0, size="small")
+    x, y = _train_batch(n=96)
+    t = Trainer(spec, params, device=dev)
+    got = t.fit(x, y, epochs=1, batch_size=32)
+    want = Trainer(spec, params, device="cpu").fit(x, y, epochs=1,
+                                                   batch_size=32)
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    t.export_model(str(tmp_path / "keras_speech_music_noise_cnn.npz"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        seg = Segmenter("smn", False, ffmpeg=None, device=dev,
+                        model_dir=str(tmp_path), allow_download=False)
+    sig = to_int16(speechlike(12.0, seed=43, silences=[(3.0, 3.5)]))
+    lseg = seg.segment_signal(sig)
+    assert lseg[0][1] == 0.0 and lseg[-1][2] == pytest.approx(11.98)
+
+
+def test_trainer_bf16_step_uses_the_updated_weight(dev, monkeypatch):
+    from inaspeechsegmenter_tpu_torch.models.keras_h5 import (
+        strip_final_softmax)
+    from inaspeechsegmenter_tpu_torch.models.native import ImportedModel
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+    from inaspeechsegmenter_tpu_torch.train import Trainer
+
+    monkeypatch.setenv("ISS_CNN_PRECISION", "bf16")
+    spec, params = build_patch_cnn(21, 3, seed=0, size="small")
+    x, y = _train_batch()
+    t = Trainer(spec, params, learning_rate=1e-2, device=dev)
+    t.train_step(x, y)
+    fresh = ImportedModel(strip_final_softmax(spec), t.params).to(dev)
+    stale = ImportedModel(strip_final_softmax(spec), params).to(dev)
+    with torch.no_grad():
+        xt = torch.from_numpy(x).to(dev)
+        got, want, old = t.model(xt), fresh(xt), stale(xt)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert (got - old).abs().max() > 1e-2
+
+
+def test_patch_dataset_cuda_matches_cpu(dev):
+    from inaspeechsegmenter_tpu_torch.train import patch_dataset
+
+    sig = speechlike(30.0, seed=41, silences=[(5.0, 5.8), (20.0, 20.2)])
+    annot = [("speech", 0.0, 9.0), ("music", 9.0, 17.5), ("male", 17.5, 24.0),
+             ("noise", 24.0, 30.0)]
+    pairs = [(sig, annot), (sig[:16000 * 7], annot)]
+    for engine in ("smn", "gender"):
+        fe0 = fe_kernel.sidekit_features.launches
+        got = patch_dataset(pairs, engine, return_times=True, device=dev)
+        assert fe_kernel.sidekit_features.launches == fe0 + 2
+        want = patch_dataset(pairs, engine, return_times=True, device="cpu")
+        assert got[0].shape == want[0].shape and len(got[0]) > 0
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])

@@ -1,10 +1,11 @@
-"""PyTorch port: runs without jax, pandas or h5py, and without the JAX
-package.
+"""PyTorch port: runs without jax, optax, pandas or h5py, and without the
+JAX package.
 
 The machine with the GPU has none of them, so the port must neither import
-them (at module level, on the segmentation, VFS or online path) nor name
-jax or the JAX package ``inaspeechsegmenter_tpu`` in an import anywhere in
-its sources or in ``chip_smoke.py``.
+them (at module level, on the segmentation, VFS, online, scoring, training
+or job-farm path) nor name jax, optax, pandas, h5py or the JAX package
+``inaspeechsegmenter_tpu`` in an import anywhere in its sources or in
+``chip_smoke.py``.
 """
 
 import os
@@ -153,8 +154,8 @@ def test_port_runs_without_jax_pandas_h5py(tmp_path):
 def test_no_source_imports_jax_pandas_or_h5py():
     # ``inaspeechsegmenter_tpu`` followed by a word character is the port
     pat = re.compile(r"^\s*(import|from)\s+"
-                     r"(jax|jaxlib|pandas|h5py|inaspeechsegmenter_tpu)\b",
-                     re.MULTILINE)
+                     r"(jax|jaxlib|optax|pandas|h5py|inaspeechsegmenter_tpu)"
+                     r"\b", re.MULTILINE)
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
@@ -165,4 +166,76 @@ def test_no_source_imports_jax_pandas_or_h5py():
                 offenders.append(os.path.relpath(path, REPO))
     assert not offenders, offenders
     assert pat.search("from inaspeechsegmenter_tpu.online import x")
+    assert pat.search("    import pandas as pd")
+    assert pat.search("import optax")
     assert not pat.search("from inaspeechsegmenter_tpu_torch import x")
+
+
+CODE_TRAIN_SCORE_FARM = r"""
+import os
+import sys
+import warnings
+for m in ("jax", "jaxlib", "optax", "pandas", "h5py",
+          "inaspeechsegmenter_tpu"):
+    sys.modules[m] = None                # importing them now raises
+import numpy as np
+from inaspeechsegmenter_tpu_torch import Segmenter, eval as ev, seg2csv
+from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+from inaspeechsegmenter_tpu_torch.cli import client, evaluate, server, setjobs
+from inaspeechsegmenter_tpu_torch.models import synthetic
+from inaspeechsegmenter_tpu_torch.models.registry import load_patch_model
+from inaspeechsegmenter_tpu_torch.parallel import (JobClient, JobServer,
+                                                   client_work_loop)
+from inaspeechsegmenter_tpu_torch.train import (ENGINES, Trainer,
+                                                class_weights, patch_dataset)
+
+synthetic.install_synthetic_models("models", size="small")
+rng = np.random.default_rng(0)
+sig = (rng.standard_normal(16000 * 6) * 3000).astype(np.int16)
+sig[16000:24000] = 0
+write_wav("t.wav", sig, 16000)
+seg = Segmenter("smn", True, ffmpeg=None, device="cpu", model_dir="models")
+os.makedirs("out")
+with open("jobs.csv", "w") as fh:
+    fh.write("source_path,dest_path\nt.wav,out/t.csv\nt.wav , out/t.csv\n")
+tcp, uri = JobServer("jobs.csv").serve(host="127.0.0.1", port=0)
+ret = client_work_loop(uri, seg, hostname="w")
+tcp.shutdown()
+tcp.server_close()
+assert ret[1] == 1, ret
+lseg = ev.load_segmentation("out/t.csv")
+assert lseg == seg("t.wav") and ev.frame_diff("out/t.csv", lseg) == 0.0
+x, y = patch_dataset([("t.wav", "out/t.csv")], "smn", ffmpeg=None,
+                     stride=4, device="cpu")
+model = load_patch_model("keras_speech_music_noise_cnn.hdf5", "models")
+t = Trainer(model.spec, model.params, class_weight=class_weights(y, 3),
+            device="cpu")
+losses = t.fit(x, y, epochs=2, batch_size=16)
+assert losses and np.isfinite(losses).all()
+t.save_checkpoint("ckpt")
+t.restore_checkpoint("ckpt")
+t.export_model("models/keras_speech_music_noise_cnn.npz")
+with warnings.catch_warnings():
+    warnings.simplefilter("error")
+    load_patch_model("keras_speech_music_noise_cnn.hdf5", "models")
+os.makedirs("hyp")
+seg2csv(Segmenter("smn", True, ffmpeg=None, device="cpu",
+                  model_dir="models")("t.wav"), "hyp/t.csv")
+assert evaluate.main(["-r", "out", "-y", "hyp", "--json"]) == 0
+bad = [m for m in ("jax", "jaxlib", "optax", "pandas", "h5py",
+                   "inaspeechsegmenter_tpu") if sys.modules.get(m)]
+assert not bad, bad
+print("NO-JAX-OK")
+"""
+
+
+def test_score_train_and_farm_without_jax(tmp_path):
+    """The scorer, the patch dataset, the trainer (checkpoint and export)
+    and the job farm with its CLIs, in a process where importing jax,
+    optax, pandas, h5py or the JAX package fails."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", CODE_TRAIN_SCORE_FARM],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO-JAX-OK" in r.stdout
