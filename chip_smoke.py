@@ -125,12 +125,39 @@ Phases, each fatal on failure (non-zero exit, no final line):
    rows in its csv) drained by ``client_work_loop`` with phase 2's
    Segmenter (csvs byte-equal to phase 2's, wall time), a second run that
    skips every file, and one ``--vfs`` job through ``cli.client`` on the
-   60 s mix (its row equal to phase 3's).
+   60 s mix (its row equal to phase 3's);
+8. the multi-GPU engine on every visible card; one card gives the testing
+   form of a mesh, two slots on ``cuda:0`` (the trainer's 2 x 2: four
+   slots on it); the mesh's slot and distinct-device counts are printed.
+   (a) ``ParallelEngine.batch_process`` of phase 2's three WAVs: csvs
+   byte-equal to phase 2's, launches as the routing predicts (a corpus
+   runs each file on the per-file path: one features launch and three
+   decodes a file), warm walls in turns with ``Segmenter.batch_process``;
+   (b) ``ParallelEngine.__call__`` of the 10 min mix through
+   ``run_sharded``: 0 of 29,999 frames differ from the fused ``run``, one
+   features launch and the tail's three decodes, warm walls in turns with
+   ``seg(wav)``; (c) ``VoiceFemininityScoring(mesh=)`` on the 10 min mix:
+   the result tuple equal to phase 3's scorer's, the embeddings of every
+   window within 1e-3 relative L2 of the one-device extractor's, windows/s
+   of both in turns; (d) the full-width smn CNN trainer at batch 256 on
+   the 10 min mix's dataset, 1 x 1, 2 x 1 and 2 x 2 (the ``fc1`` kernel
+   split over the model axis), 10 steps each at ``highest``: ms a step
+   and the free-running losses against the 1 x 1 trainer's (printed:
+   Adam amplifies float reassociation from step to step); then 10 steps
+   each from the 1 x 1 trainer's state (its checkpoint restored on the
+   mesh before every step): losses within 1e-5 relative and summed
+   gradients within 1e-4 of each array's largest magnitude; (e) the
+   features kernel (10 min int16 signal) and the K = 3 Viterbi (T =
+   180,000) launched at once from the two slots' threads on their own
+   streams, each held against its plain version (phase 1's tolerances;
+   states equal), then two launches of each timed on one stream and on two
+   streams.
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-7, launches per file for
+summed over the main-path runs of phases 2-8, launches per file for
 segmentation, VFS, the online segmenter, the ffmpeg decode, each run
-of phase 6 and phase 7's train and farm paths, ``bound_ms``: the larger of the
+of phase 6, phase 7's train and farm paths and phase 8's engine batch,
+sharded file and mesh VFS runs, ``bound_ms``: the larger of the
 bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
 card's name and power limit; the last line is the JSON result.  Every time
 is on the card that line names.  Imports nothing of JAX.
@@ -2102,6 +2129,268 @@ def phase_train_score_farm(torch, dev, workdir, seg, files, wavs, models):
     return {"train": per_train, "farm": per_farm}
 
 
+# --------------------------------------------------------------------------
+ENGINE_TRAIN_STEPS = 10         # steps of each mesh trainer
+ENGINE_LOSS_RTOL = 1e-5         # mesh losses against the one-slot trainer's
+ENGINE_GRAD_ATOL = 1e-4         # summed gradients, of each array's largest
+                                # magnitude: the card's gradient bound of
+                                # phase 7 and tests/test_torch_cuda.py
+
+
+def engine_devices(torch):
+    """Every visible CUDA device; one card gives the testing form, two
+    slots on ``cuda:0``."""
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", i) for i in range(n)]
+    return devs if n > 1 else devs * 2
+
+
+def in_turns(fns, reps=2):
+    """Wall times of each ``fn`` run in turns (a, b, b, a, ...)."""
+    walls = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(reps):
+        for name in order:
+            t0 = time.perf_counter()
+            fns[name]()
+            walls[name].append(time.perf_counter() - t0)
+    return walls
+
+
+def slot_kernels(torch, devices):
+    """8(e): the features kernel (10 min int16 signal) and the K = 3
+    Viterbi (T = 180,000) launched at once on two slot streams, from the
+    slots' threads, each held against its plain version; then both kernels
+    timed on one stream twice in a row and on two streams at once."""
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel, sidekit
+    from inaspeechsegmenter_tpu_torch.parallel.mesh import (run_on_slots,
+                                                            slot_streams)
+
+    devs = devices[:2]
+    streams = slot_streams(devs)
+    sig = to_int16(seeded_mix(600, seed=81, silences=silences_every(600)))
+    inputs = []
+    for d in devs:
+        args = viterbi_args(torch, d, 3, "random", VITERBI_T)
+        inputs.append((torch.from_numpy(sig).to(d),
+                       sidekit.frontend_consts(d), args))
+    torch.cuda.synchronize()
+
+    def slot(k, item):
+        x, consts, args = item
+        return fe_kernel.sidekit_features(x, consts), tv.viterbi_scan(*args)
+
+    reset_kernel_counts()
+    out = run_on_slots(slot, inputs, devs, streams)
+    counts = kernel_counts()
+    check(counts["sidekit_fe"] == 2 and counts["viterbi"] == 2,
+          f"slot kernels launched {counts}")
+    for k, ((mspec, loge), states) in enumerate(out):
+        x, consts, args = inputs[k]
+        mp, lp = fe_kernel.sidekit_features_plain(x, consts)
+        mk, lk, mp, lp = (a.cpu().numpy() for a in (mspec, loge, mp, lp))
+        fin, finl = np.isfinite(mp), np.isfinite(lp)
+        check(np.array_equal(np.isfinite(mk), fin)
+              and np.array_equal(np.isfinite(lk), finl),
+              f"slot {k}: finite masks differ")
+        check(np.allclose(mk[fin], mp[fin], rtol=1e-4, atol=1e-4)
+              and np.allclose(lk[finl], lp[finl], rtol=1e-5, atol=1e-5),
+              f"slot {k}: features differ from the plain version")
+        err = max(float(np.abs(mk[fin] - mp[fin]).max()),
+                  float(np.abs(lk[finl] - lp[finl]).max()))
+        n_diff = int((states != tv.viterbi_scan_plain(*args)).sum())
+        log(f"[engine] (e) slot {k}'s stream: features max_abs_err {err!r}; "
+            f"Viterbi K=3 T={VITERBI_T}: {n_diff} states differ from the "
+            "plain loop")
+        check(n_diff == 0, f"slot {k}: Viterbi states differ")
+
+    # one stream twice in a row against two streams at once (one thread)
+    def viterbi_on(stream_list):
+        for st, (_, _, args) in zip(stream_list, inputs):
+            with torch.cuda.stream(st):
+                tv.viterbi_scan(*args)
+
+    def features_on(stream_list):
+        for st, (x, consts, _) in zip(stream_list, inputs):
+            with torch.cuda.stream(st):
+                fe_kernel.sidekit_features(x, consts)
+
+    for name, fn in (("viterbi", viterbi_on), ("sidekit_fe", features_on)):
+        fn(streams)
+        _, same = synced_ms(torch, lambda: fn([streams[0], streams[0]]), 21)
+        _, apart = synced_ms(torch, lambda: fn(streams), 21)
+        log(f"[engine] (e) two {name} launches, host wall with a sync "
+            f"(median of 21): one stream {same!r} ms, two streams "
+            f"{apart!r} ms")
+
+
+def phase_engine(torch, dev, workdir, seg, vfs, params, files, wavs, models,
+                 speech_rate):
+    """Phase 8: the multi-GPU engine on every visible card (one card: two
+    slots on it). -> kernel launches by path."""
+    from inaspeechsegmenter_tpu_torch import VoiceFemininityScoring
+    from inaspeechsegmenter_tpu_torch.models.registry import load_patch_model
+    from inaspeechsegmenter_tpu_torch.parallel import (ParallelEngine,
+                                                       make_2d_mesh,
+                                                       make_mesh)
+    from inaspeechsegmenter_tpu_torch.train import Trainer, patch_dataset
+
+    t_phase = time.perf_counter()
+    devices = engine_devices(torch)
+    mesh = make_mesh(devices=devices)
+    log(f"[engine] mesh of {mesh.devices.size} slots on "
+        f"{len(set(devices))} distinct devices: {[str(d) for d in devices]}")
+    per = {}
+
+    # (a) batch_process of phase 2's three WAVs
+    engine = ParallelEngine(seg, mesh)
+    outs = [os.path.join(workdir, "engine", os.path.basename(w)[:-4]
+                         + ".csv") for w in wavs]
+    reset_kernel_counts()
+    _, n_ok, _, lmsg = engine.batch_process(wavs, outs)
+    per["engine_batch"] = kernel_counts()
+    check(n_ok == len(wavs), f"engine statuses {lmsg}")
+    # the routing: a corpus runs every file per-file (a file alone in its
+    # bucket too): one features launch and three decodes a file
+    check(per["engine_batch"] == {"sidekit_fe": 3, "viterbi": 9,
+                                  "viterbi_general": 0},
+          f"engine batch launches {per['engine_batch']}")
+    for w, o in zip(wavs, outs):
+        ref = os.path.join(workdir, "out", os.path.basename(w)[:-4] + ".csv")
+        with open(o, "rb") as a, open(ref, "rb") as b:
+            check(a.read() == b.read(), f"{o}: csv differs from phase 2's")
+    ref_outs = [o + ".seg" for o in outs]
+    walls = in_turns({"Segmenter": lambda: seg.batch_process(wavs, ref_outs),
+                      "ParallelEngine": lambda: engine.batch_process(
+                          wavs, outs)})
+    log(f"[engine] (a) batch_process of {len(wavs)} files, csvs byte-equal "
+        f"to phase 2's, launches {per['engine_batch']}; warm walls in turns "
+        f"(s): {walls}")
+
+    # (b) the 10 min mix's timeline over the slots
+    wav = wavs[list(files).index("mix600")]
+    reset_kernel_counts()
+    got = engine(wav)
+    per["sharded"] = kernel_counts()
+    check(per["sharded"] == {"sidekit_fe": 1, "viterbi": 3,
+                             "viterbi_general": 0},
+          f"sharded launches {per['sharded']}")
+    a, b = frame_labels(got), frame_labels(seg(wav))
+    check(a.shape == b.shape, "sharded and fused label counts differ")
+    n_diff = int((a != b).sum())
+    walls = in_turns({"run": lambda: seg(wav),
+                      "run_sharded": lambda: engine(wav)}, reps=3)
+    log(f"[engine] (b) engine(mix600) through run_sharded: {n_diff} of "
+        f"{len(a)} frames differ from the fused run; launches "
+        f"{per['sharded']}; warm walls in turns (s): {walls}")
+    check(n_diff == 0, "run_sharded labels differ from run's")
+
+    # (c) VFS with the window sub-batches split over the slots
+    t0 = time.perf_counter()
+    vfs_m = VoiceFemininityScoring("bgc", ffmpeg=None, mesh=mesh,
+                                   device=dev, model_dir=models,
+                                   xvector_params=params,
+                                   allow_download=False)
+    build_s = time.perf_counter() - t0
+    reset_kernel_counts()
+    res_m = vfs_m(wav)
+    per["vfs_mesh"] = kernel_counts()
+    check_segmentation_launches(per["vfs_mesh"], "the mesh VFS run")
+    res_1 = vfs(wav)
+    check(res_m == res_1, f"mesh VFS {res_m} != phase 3's {res_1}")
+    basename, fea, timeline, duration, _ = vfs._prepare(wav)
+    starts = list(range(0, fea.shape[0] - 144, 24))
+    emb_m = vfs_m.xvector_model.embeddings_from_features(fea, starts)
+    emb_1 = vfs.xvector_model.embeddings_from_features(fea, starts)
+    err = rel_l2(emb_m, emb_1)
+    check(err <= 1e-3, f"mesh embeddings differ ({err!r})")
+    rates = {}
+    for name, xm in (("one slot", vfs.xvector_model),
+                     ("mesh", vfs_m.xvector_model)):
+        xm("mix600", fea, duration, timeline=timeline)      # warm
+    walls = in_turns({
+        name: (lambda xm=xm: (xm("mix600", fea, duration, timeline=timeline),
+                              torch.cuda.synchronize()))
+        for name, xm in (("one slot", vfs.xvector_model),
+                         ("mesh", vfs_m.xvector_model))})
+    n_win = len(vfs.xvector_model("mix600", fea, duration,
+                                  timeline=timeline))
+    for name, w in walls.items():
+        rates[name] = n_win / min(w)
+    log(f"[engine] (c) VoiceFemininityScoring(mesh=) built in {build_s!r} "
+        f"s; mix600 result {res_m} equal to phase 3's; embeddings of "
+        f"{len(starts)} windows max_rel_l2 {err!r}; {n_win} speech windows, "
+        f"windows/s {rates} (phase 3's {speech_rate!r}); walls {walls}; "
+        f"launches {per['vfs_mesh']}")
+
+    # (d) the full-width smn CNN trainer on meshes
+    annot = os.path.join(workdir, "annot", "mix600.csv")
+    x, y = patch_dataset([(wav, annot)], "smn", ffmpeg=None, device=dev)
+    n = ENGINE_TRAIN_STEPS * TRAIN_BATCH
+    order = np.random.default_rng(8).permutation(len(x))[:n]
+    batches = [(x[order[i:i + TRAIN_BATCH]], y[order[i:i + TRAIN_BATCH]])
+               for i in range(0, n, TRAIN_BATCH)]
+    model = load_patch_model("keras_speech_music_noise_cnn.hdf5", models)
+    four = (devices * 4)[:4]
+    meshes = {"1x1": None,
+              "2x1": make_2d_mesh(2, 1, devices=devices[:2]),
+              "2x2": make_2d_mesh(2, 2, devices=four)}
+    trainers, losses, step_ms = {}, {}, {}
+    for name, m in meshes.items():
+        tr = Trainer(model.spec, model.params, m, device=dev)
+        check(tr.precision == "highest", f"tier {tr.precision}")
+        tr.train_step(*batches[0])                          # warm
+        tr = trainers[name] = Trainer(model.spec, model.params, m,
+                                      device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[name] = [tr.train_step(xb, yb) for xb, yb in batches]
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) / len(batches) * 1e3
+    check(bool(trainers["2x2"]._split), "the 2x2 trainer split no kernel")
+    want = np.asarray(losses["1x1"])
+    drift = {name: (np.abs(np.asarray(v) - want) / np.abs(want)).tolist()
+             for name, v in losses.items() if name != "1x1"}
+    log(f"[engine] (d) full-width smn CNN, batch {TRAIN_BATCH}, "
+        f"{ENGINE_TRAIN_STEPS} steps at highest, free-running: ms a step "
+        f"{step_ms}; losses {losses}; rel diff against 1x1 by step {drift}")
+    # the same step: before each step the mesh trainer restores the 1x1
+    # trainer's checkpoint (gathered leaves, split again on restore), so
+    # each of the steps starts from one state; loss and summed gradient
+    # of every step against the 1x1 trainer's
+    ckpt = os.path.join(workdir, "engine_ckpt.npz")
+    for name in ("2x1", "2x2"):
+        ref = Trainer(model.spec, model.params, device=dev)
+        tr = trainers[name]
+        worst_loss = worst_grad = 0.0
+        for xb, yb in batches:
+            ref.save_checkpoint(ckpt)
+            tr.restore_checkpoint(ckpt)
+            lr_, lm = ref.train_step(xb, yb), tr.train_step(xb, yb)
+            worst_loss = max(worst_loss, abs(lm - lr_) / (abs(lr_) or 1.0))
+            g_ref = ref._gathered(lambda p: p.grad)
+            g_m = tr._gathered(lambda p: p.grad)
+            for k, arrays in g_ref.items():
+                for g, h in zip(arrays, g_m[k]):
+                    if g is not None:
+                        scale = float(g.abs().max()) or 1.0
+                        worst_grad = max(worst_grad,
+                                         float((g - h).abs().max()) / scale)
+        log(f"[engine] (d) {name} from the 1x1 state at each of "
+            f"{len(batches)} steps: max rel loss diff {worst_loss!r} (rtol "
+            f"{ENGINE_LOSS_RTOL}), max gradient diff {worst_grad!r} of each "
+            f"array's largest magnitude (atol {ENGINE_GRAD_ATOL})")
+        check(worst_loss <= ENGINE_LOSS_RTOL
+              and worst_grad <= ENGINE_GRAD_ATOL,
+              f"the {name} step differs from the one-slot step")
+
+    # (e) the kernels on the slots' streams
+    slot_kernels(torch, devices)
+    log(f"[phase 8] multi-GPU engine: {time.perf_counter() - t_phase!r} s")
+    return per
+
+
 def main():
     import torch
 
@@ -2140,6 +2429,8 @@ def main():
                                            files, wavs, models, speech_rate)
         per_ref.update(phase_train_score_farm(torch, dev, workdir, seg,
                                               files, wavs, models))
+        per_ref.update(phase_engine(torch, dev, workdir, seg, vfs, params,
+                                    files, wavs, models, speech_rate))
     kernels.append(general)
     for k in kernels:
         name = k["name"]
@@ -2148,7 +2439,8 @@ def main():
         k["launches_per_file"] = {
             path: counts[name]
             for path, counts in {**earlier, **per_ref}.items()}
-        # the main-path runs of phases 2-7 (phase 1's comparisons excluded)
+        # the main-path runs of phases 2-8 (the kernels' comparisons with
+        # their plain versions excluded)
         k["launches"] = sum(c[name] for c in (
             launches, launches_vfs, per_online_file, launches_real,
             *per_ref.values()))

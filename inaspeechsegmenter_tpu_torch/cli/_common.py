@@ -11,3 +11,15 @@ def resolve_ffmpeg(name):
               'sampled at 16kHz.')
         return None
     return name
+
+
+def parallel_mesh(device):
+    """The ``--parallel`` mesh: every visible CUDA device for a CUDA
+    ``--device`` (none visible raises), the one CPU slot for ``cpu``."""
+    import torch
+
+    from ..parallel.mesh import make_mesh
+
+    if torch.device(device).type == 'cpu':
+        return make_mesh(devices=[device])
+    return make_mesh()

@@ -6,7 +6,8 @@ scripts/ina_speech_segmenter.py:45-84) — -i input globs, -o output dir,
 export format, -r energy ratio, --follow / --follow_idle — plus
 ``--device`` (default cuda; the run fails rather than falling back to the
 CPU).  ``-b`` defaults to ``ffmpeg``; ``-b none`` takes 16 kHz WAV input
-only.  ``--parallel`` waits for the multi-GPU engine.
+only.  ``--parallel`` runs ``parallel.ParallelEngine(seg).batch_process``
+over every visible CUDA device (with ``--device cpu``, one CPU slot).
 
     python -m inaspeechsegmenter_tpu_torch.cli.segment -i in.mp3 -o outdir \\
         --device cuda
@@ -21,7 +22,7 @@ import glob
 import os
 import warnings
 
-from ._common import resolve_ffmpeg
+from ._common import parallel_mesh, resolve_ffmpeg
 
 description = (
     "Segment media files into speech/music(/noise) regions, optionally "
@@ -53,6 +54,9 @@ def build_parser():
     parser.add_argument('-r', '--energy_ratio', default=0.03, type=float)
     parser.add_argument('--device', default='cuda',
                         help="Torch device, 'cuda' (default) or 'cpu'.")
+    parser.add_argument('--parallel', action='store_true',
+                        help='Spread files over all local GPUs (a lone '
+                             "file: its timeline).")
     parser.add_argument('--follow', action='store_true',
                         help='Tail ONE growing PCM16 mono 16 kHz WAV file '
                              '(a recording in progress): segment appended '
@@ -98,6 +102,10 @@ def main(argv=None):
         warnings.simplefilter('ignore')
         if args.follow:
             return _follow(seg, input_files[0], output_files[0], args)
+        if args.parallel:
+            from inaspeechsegmenter_tpu_torch.parallel import ParallelEngine
+
+            seg = ParallelEngine(seg, parallel_mesh(args.device))
         return seg.batch_process(input_files, output_files, verbose=True,
                                  output_format=args.export_format)
 

@@ -5,7 +5,9 @@ port supports — -i input globs, -o output dir, -c model criteria, -b ffmpeg
 binary, --skipifexist, --nbtry, --follow / --follow_idle — plus
 ``--device`` (default cuda; the run fails rather than falling back to the
 CPU).  ``-b`` defaults to ``ffmpeg``; ``-b none`` takes 16 kHz WAV input
-only.  ``--parallel`` waits for the multi-GPU engine.  Writes one
+only.  ``--parallel`` splits each file's x-vector window batches over every
+visible CUDA device (one visible: the one-device path, with a notice).
+Writes one
 tab-separated csv per input with columns ``score / speech_duration /
 nb_vectors``; model weights are resolved by ``models.registry``.
 
@@ -22,7 +24,7 @@ import glob
 import os
 import warnings
 
-from ._common import resolve_ffmpeg
+from ._common import parallel_mesh, resolve_ffmpeg
 
 description = (
     "Score voice femininity of media files: x-vector speaker embeddings "
@@ -55,6 +57,10 @@ def build_parser():
                         help='Attempts per file before reporting an error.')
     parser.add_argument('--device', default='cuda',
                         help="Torch device, 'cuda' (default) or 'cpu'.")
+    parser.add_argument('--parallel', action='store_true',
+                        help="Shard each file's x-vector window batches "
+                             'across all local GPUs; scores are those of '
+                             'the one-device path.')
     parser.add_argument('--follow', action='store_true',
                         help='Tail ONE growing PCM16 mono 16 kHz WAV file '
                              '(a recording in progress): print provisional '
@@ -90,8 +96,15 @@ def main(argv=None):
 
     from inaspeechsegmenter_tpu_torch import vfs
 
+    mesh = None
+    if args.parallel:
+        mesh = parallel_mesh(args.device)
+        if mesh.devices.size == 1:
+            print('[vfs] --parallel: one local device, '
+                  'running single-device', flush=True)
+            mesh = None
     scorer = vfs.VoiceFemininityScoring(
-        gd_model_criteria=args.gd_model_criteria, ffmpeg=ffmpeg,
+        gd_model_criteria=args.gd_model_criteria, ffmpeg=ffmpeg, mesh=mesh,
         device=args.device)
     output_files = [
         os.path.join(odir, os.path.splitext(os.path.basename(e))[0] + '.csv')

@@ -70,29 +70,106 @@ def cnn_precision():
 
 # The TF32 flags are process-wide, and the port reaches cuBLAS and cuDNN
 # from more than one thread: ``batch_score``'s prefetch producers run the
-# VAD CNN and the VBx features while the consumer runs the ResNet.  One
-# lock, held from a scope's entry to its exit, keeps every such call under
-# its own scope's flags.
-_FLAGS_LOCK = threading.RLock()
+# VAD CNN and the VBx features while the consumer runs the ResNet, and the
+# multi-GPU engine runs one thread per mesh slot.  A scope holds the tier
+# lock from its entry to its exit: threads at the tier that holds it enter
+# together, a thread at another tier waits until every holder has left.
+class _TierLock:
+    """Shared within a tier, exclusive across tiers.
+
+    ``tier`` is the tier whose flags are set while ``count`` scopes hold
+    the lock (``holders``: scopes per thread).  A thread that holds the
+    lock alone may re-enter at another tier: that nested scope holds the
+    lock exclusively until it ends, when the outer tier's flags return.
+    A thread at the holding tier that does not hold the lock yet waits
+    while a thread at another tier is waiting, so that one is not starved.
+    """
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self.tier = None
+        self.count = 0
+        self.holders = {}
+        self.waiting = 0
+        self.nested = 0
+        self._saved = None
+
+    def _may_enter(self, tier, mine, queued):
+        if self.count == 0:
+            return True
+        if tier != self.tier:
+            return mine == self.count       # alone: a nested scope
+        if mine:
+            return True
+        return not self.nested and self.waiting == queued
+
+    def acquire(self, tier):
+        """Enter at ``tier`` -> what ``release`` restores: the outer tier
+        and its flags for a nested scope at another tier, else None."""
+        cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        me = threading.get_ident()
+        with self._cond:
+            mine = self.holders.get(me, 0)
+            queued = 0
+            while not self._may_enter(tier, mine, queued):
+                if not queued:
+                    self.waiting += 1
+                    queued = 1
+                self._cond.wait()
+            self.waiting -= queued
+            outer = None
+            if self.count == 0:
+                self._saved = cuda.allow_tf32, cudnn.allow_tf32
+            elif tier != self.tier:
+                outer = self.tier, (cuda.allow_tf32, cudnn.allow_tf32)
+                self.nested += 1
+            if self.count == 0 or outer is not None:
+                cuda.allow_tf32 = cudnn.allow_tf32 = tier == "high"
+            self.tier = tier
+            self.count += 1
+            self.holders[me] = mine + 1
+            return outer
+
+    def release(self, outer):
+        cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        me = threading.get_ident()
+        with self._cond:
+            self.count -= 1
+            left = self.holders.pop(me) - 1
+            if left:
+                self.holders[me] = left
+            if self.count == 0:
+                cuda.allow_tf32, cudnn.allow_tf32 = self._saved
+                self.tier = None
+            elif outer is not None:
+                self.tier, (cuda.allow_tf32, cudnn.allow_tf32) = outer
+            if outer is not None:
+                self.nested -= 1
+            self._cond.notify_all()
+
+    def _is_owned(self):
+        """True when the calling thread is inside a scope."""
+        with self._cond:
+            return threading.get_ident() in self.holders
+
+
+_FLAGS_LOCK = _TierLock()
 
 
 @contextlib.contextmanager
 def precision_scope(tier):
     """TF32 for matmuls and cuDNN convolutions on for ``high``, off for
     the other tiers, for the calls made inside the scope; the flags are
-    restored on exit.  The scope holds ``_FLAGS_LOCK`` throughout, so a
-    scope on another thread waits for this one to end: no call runs under
-    another thread's flags, and interleaved saves and restores cannot leave
-    the flags changed.  Every cuBLAS and cuDNN call of the port runs in
-    such a scope."""
-    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    with _FLAGS_LOCK:
-        saved = cuda.allow_tf32, cudnn.allow_tf32
-        cuda.allow_tf32 = cudnn.allow_tf32 = tier == "high"
-        try:
-            yield
-        finally:
-            cuda.allow_tf32, cudnn.allow_tf32 = saved
+    restored when the last scope ends.  Scopes at one tier run at once on
+    several threads (the engine's slots); a scope at another tier waits
+    until they have ended, so no call runs under another thread's flags
+    and interleaved saves and restores cannot leave the flags changed.
+    Every cuBLAS and cuDNN call of the port runs in such a scope."""
+    outer = _FLAGS_LOCK.acquire(tier)
+    try:
+        yield
+    finally:
+        _FLAGS_LOCK.release(outer)
 
 
 def tiered_product(fn, x, weight, bias, weight_bf16, channel_dim=1):

@@ -1,7 +1,10 @@
-"""The job farm on the port (``parallel/jobs.py``).  The multi-GPU engine
-and the mesh helpers of the JAX package's ``parallel`` wait for their own
-slice (``ROADMAP.md``)."""
+"""Multi-GPU engine, device meshes and the job farm on the port
+(``parallel/engine.py``, ``parallel/mesh.py``, ``parallel/jobs.py``).
+The JAX package's multi-host helpers are not ported (``ROADMAP.md``)."""
 
+from .engine import ParallelEngine
 from .jobs import JobClient, JobServer, client_work_loop
+from .mesh import make_2d_mesh, make_mesh, replicate, shard_batch
 
-__all__ = ["JobServer", "JobClient", "client_work_loop"]
+__all__ = ["make_mesh", "make_2d_mesh", "shard_batch", "replicate",
+           "ParallelEngine", "JobServer", "JobClient", "client_work_loop"]

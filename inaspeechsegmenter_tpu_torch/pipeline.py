@@ -58,6 +58,8 @@ class FusedPipeline:
 
     def __init__(self, vad, gender=None, energy_ratio=0.03, device="cuda"):
         self.device = resolve_device(device)
+        self._stages = vad, gender, energy_ratio
+        self._slots = {}
         self.vad_model, self.vad_nmel, self.vad_nout, vad_arg = vad
         self.gender = gender
         if gender is not None:
@@ -128,17 +130,21 @@ class FusedPipeline:
         reset[1:] = inmask[1:] != inmask[:-1]
         return viterbi_scan(em.contiguous(), trans, init, reset)
 
-    def _labels(self, mspec, n_frames_patch, energy20, probs_v):
+    def _labels(self, mspec, n_frames_patch, energy20, probs_v, probs_g=None):
         """VAD decode, then the gender CNN and decode on the speech frames
-        -> (n20,) int32 label ids."""
+        -> (n20,) int32 label ids.  ``probs_g``: the gender emissions of
+        every frame, computed already (``run_sharded``); the decode reads
+        only the speech frames' ones."""
         states_v = self._masked_viterbi(probs_v, energy20, self.v_trans,
                                         self.v_init)
         labels = torch.where(energy20, states_v + 1,
                              torch.zeros_like(states_v)).to(torch.int32)
         if self.gender is not None:
             speech20 = labels == 1   # outlabels[0] == 'speech' for sm and smn
-            probs_g = self._cnn_probs(self.g_model, mspec, n_frames_patch,
-                                      self.g_nmel, self.g_nout, speech20)
+            if probs_g is None:
+                probs_g = self._cnn_probs(self.g_model, mspec,
+                                          n_frames_patch, self.g_nmel,
+                                          self.g_nout, speech20)
             states_g = self._masked_viterbi(probs_g, speech20, self.g_trans,
                                             self.g_init)
             labels = torch.where(speech20, states_g + 1 + self.vad_nout,
@@ -233,15 +239,20 @@ class FusedPipeline:
                           n20, ext)
 
     def _tail(self, mspec, loge, probs_v, n_frames, n_frames_patch, n20,
-              ext=None):
+              ext=None, probs_g=None):
         """The part of the streaming path that needs the whole stream
         (the JAX ``_tail_impl``): energy decode, right-edge repair, VAD
         decode, then the gender CNN on the decoded speech frames and its
-        decode."""
+        decode.  Gender emissions computed already (``probs_g``, every
+        frame) take only the right-edge repair instead of the CNN."""
         energy20 = self._energy_states20(loge[:n_frames], ext)[:n20]
         probs_v = self._fix_right_edge(self.vad_model, self.vad_nmel, mspec,
                                        probs_v, n_frames_patch)[:n20]
-        return self._labels(mspec, n_frames_patch, energy20, probs_v)
+        if probs_g is not None:
+            probs_g = self._fix_right_edge(self.g_model, self.g_nmel, mspec,
+                                           probs_g, n_frames_patch)[:n20]
+        return self._labels(mspec, n_frames_patch, energy20, probs_v,
+                            probs_g)
 
     def run_streaming(self, chunks, n_frames, n_frames_patch, n20):
         """Streaming execution over per-chunk features
@@ -250,6 +261,105 @@ class FusedPipeline:
         probs = [self.chunk_emissions(chunks, c) for c in range(len(chunks))]
         return self.stream_decode(chunks, probs, n_frames, n_frames_patch,
                                   n20)
+
+    # -- sequence-parallel single-file path ---------------------------------
+    #
+    # The multi-file engine (parallel/engine.py) spreads files over the
+    # mesh's slots; this spreads ONE file's timeline: the feature rows are
+    # split into the streaming path's halo'd chunks, each slot computes the
+    # VAD and gender CNN emissions of its run of chunks on its own replica,
+    # and the tail (energy, VAD and gender decodes, O(T) with K <= 3
+    # states) runs on the mesh's first device with the gathered emissions.
+    # The gender emissions are computed for every frame (a patch's
+    # normalization does not depend on its segment), so they equal the
+    # fused path's on every frame the masked gender Viterbi reads.
+
+    def slots(self, mesh):
+        """(pipelines, streams): one copy of this pipeline, its models
+        replicated on the slot's device, and one CUDA stream (None on the
+        CPU) per slot of ``mesh``; made once per device list and kept."""
+        from .parallel.mesh import replicate, slot_streams
+
+        devices = list(mesh.devices.flat)
+        key = tuple(str(d) for d in devices)
+        if key not in self._slots:
+            vad, gender, energy_ratio = self._stages
+            vads = replicate(mesh, vad[0])
+            gens = (replicate(mesh, gender[0]) if gender is not None
+                    else [None] * len(devices))
+            pipes = [FusedPipeline(
+                (v,) + tuple(vad[1:]),
+                None if g is None else (g,) + tuple(gender[1:]),
+                energy_ratio, device=d)
+                for v, g, d in zip(vads, gens, devices)]
+            self._slots[key] = pipes, slot_streams(devices)
+        return self._slots[key]
+
+    def run_sharded(self, mspec, loge, n_frames, n_frames_patch, n20, mesh):
+        """Sequence-parallel execution of one file over ``mesh`` -> (n20,)
+        int32 label ids on the mesh's first device, equal to `run`'s
+        (tests/test_torch_sharded_file.py).
+
+        Slot k takes chunks [k*per, (k+1)*per) of the ceil(rows / CHUNK)
+        chunks, per = ceil(chunks / slots) (the JAX chunk axis padded to a
+        slot multiple; a slot past the last chunk runs nothing).  Each slot
+        gets only its rows and STREAM_HALO rows each side, zeros outside
+        the file, copied to its device; every chunk runs as a middle
+        chunk, and chunk 0's left replicate edge is repaired after the
+        gather: frames < LPAD take frame LPAD's emission, window 0's
+        prediction, the value the first-chunk rule gives them.
+
+        :param mspec: (rows, >= nmel) log-mel rows, ``loge`` (>= n_frames,)
+            log-energy, both on one device.
+        """
+        from .dsp.sidekit import CHUNK
+        from .parallel.mesh import run_on_slots
+
+        pipes, streams = self.slots(mesh)
+        devices = list(mesh.devices.flat)
+        dev0 = devices[0]
+        rows, h = mspec.shape[0], STREAM_HALO
+        n_chunks = -(-rows // CHUNK)
+        per = -(-n_chunks // len(devices))
+        items = []
+        for k, dev in enumerate(devices):
+            c0, c1 = min(k * per, n_chunks), min((k + 1) * per, n_chunks)
+            a, b = max(c0 * CHUNK - h, 0), min(c1 * CHUNK + h, rows)
+            items.append((c0, c1, a, mspec[a:b].to(dev) if c1 > c0
+                          else None))
+
+        def slot(k, item):
+            c0, c1, a, part = item
+            if c1 == c0:
+                return None
+            pipe = pipes[k]
+            blk = part.new_zeros(((c1 - c0) * CHUNK + 2 * h, part.shape[1]))
+            off = a - (c0 * CHUNK - h)
+            blk[off:off + part.shape[0]] = part
+            stages = [(pipe.vad_model, pipe.vad_nmel)]
+            if pipe.gender is not None:
+                stages.append((pipe.g_model, pipe.g_nmel))
+            out = []
+            for model, nmel in stages:
+                out.append(torch.cat([pipe._chunk_probs(
+                    model, nmel, blk[j * CHUNK:j * CHUNK + h],
+                    blk[j * CHUNK + h:(j + 1) * CHUNK + h],
+                    blk[(j + 1) * CHUNK + h:(j + 1) * CHUNK + 2 * h], False)
+                    for j in range(c1 - c0)]))
+            return out
+
+        parts = [p for p in run_on_slots(slot, items, devices, streams)
+                 if p is not None]
+
+        def gather(i):
+            p = torch.cat([q[i].to(dev0) for q in parts])
+            p[:LPAD] = p[LPAD]
+            return p
+
+        probs_g = gather(1) if self.gender is not None else None
+        head = pipes[0]
+        return head._tail(mspec.to(dev0), loge.to(dev0), gather(0), n_frames,
+                          n_frames_patch, n20, probs_g=probs_g)
 
 
 def rle(labels):

@@ -190,11 +190,12 @@ class Segmenter:
         self.timers = StageTimers("decode", "features", "segment")
 
     # ------------------------------------------------------------------
-    def _media2feats(self, medianame):
-        """Decode + features -> (mspec, loge, t, difflen) on the device."""
+    def _media2feats(self, medianame, start_sec=None, stop_sec=None):
+        """Decode [start_sec, stop_sec) + features -> (mspec, loge, t,
+        difflen) on the device (the whole file by default)."""
         with self.timers.time("decode"):
-            sig = media2sig16kmono(medianame, ffmpeg=self.ffmpeg,
-                                   dtype="auto")
+            sig = media2sig16kmono(medianame, start_sec, stop_sec,
+                                   self.ffmpeg, "auto")
         return self._sig2feats(sig, medianame)
 
     def _sig2feats(self, sig, medianame="<signal>", keep_pcm=False):

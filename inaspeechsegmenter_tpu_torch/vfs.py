@@ -28,8 +28,9 @@ On a CUDA device the VBx features take the int16 grid
 VAD's own upload (``Segmenter.segment_signal(return_pcm=True)``), with no
 host work of their own.  ``batch_score`` prefetches the next files' VAD
 and VBx features on producer threads; ``online.OnlineVFS`` scores a
-growing recording.  Not ported: the overlapped speculative scorer and
-``mesh=`` (the multi-GPU engine's).
+growing recording.  With ``mesh=`` each sub-batch of windows is split
+over the mesh's slots, one ResNet replica each (``parallel/mesh.py``).
+Not ported: the overlapped speculative scorer.
 """
 
 from __future__ import annotations
@@ -114,10 +115,16 @@ class TorchResnetExtractor:
         (``registry.resolve_xvector_weights``).
     :param net: a ``ResNetXVector`` module (default: ResNet101, 64 bands,
         256-d); it is moved to ``device``.
+    :param mesh: a 1-D ``parallel.mesh.Mesh``: every sub-batch is split
+        evenly over its slots, each running its own replica of the net on
+        its own thread and stream, and the embeddings are gathered in
+        order; the ragged tail window runs on ``device``.
     """
 
-    def __init__(self, params=None, net=None, device="cuda", model_dir=None):
+    def __init__(self, params=None, net=None, device="cuda", model_dir=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.net = net if net is not None else ResNet101XVector(
             feat_dim=FEAT_DIM, embed_dim=EMBED_DIM)
         if params is None:
@@ -131,17 +138,39 @@ class TorchResnetExtractor:
         if params is not None:
             self.net.load_jax_params(params)
         self.net = self.net.to(self.device).eval()
+        if mesh is not None:
+            from .parallel.mesh import replicate, slot_streams
 
-    @staticmethod
-    def _xvec_layout():
+            self.slot_devices = list(mesh.devices.flat)
+            self.replicas = replicate(mesh, self.net)
+            self.streams = slot_streams(self.slot_devices)
+
+    def _xvec_layout(self):
         """(sub, buckets): the sub-batch size ``ISS_XVEC_BATCH`` (default
         256) and the ladder of batch sizes a forward runs at, the powers of
-        two capped at ``sub``.  Every bucket maps to itself, so a padded
+        two capped at ``sub``, each rounded up to a multiple of the mesh's
+        slots (the JAX package's mesh-rounded ladder; no mesh or a 1-slot
+        mesh: the plain ladder).  Every bucket maps to itself, so a padded
         group is run as it is."""
         sub = max(1, int(os.environ.get("ISS_XVEC_BATCH", "256")))
-        buckets = sorted({min(1 << p, sub)
+        n = 1 if self.mesh is None else self.mesh.devices.size
+        sub = -(-sub // n) * n
+        buckets = sorted({-(-min(1 << p, sub) // n) * n
                           for p in range((sub - 1).bit_length() + 1)})
         return sub, buckets
+
+    def _forward(self, part):
+        """(B, 64, T) windows -> (B, 256) embeddings on ``device``: the net
+        on ``device``, or with a mesh B/slots windows on each slot."""
+        if self.mesh is None:
+            return self.net(part)
+        from .parallel.mesh import run_on_slots
+
+        n = len(self.slot_devices)
+        items = [p.to(d) for p, d in zip(part.chunk(n), self.slot_devices)]
+        outs = run_on_slots(lambda k, x: self.replicas[k](x), items,
+                            self.slot_devices, self.streams)
+        return torch.cat([o.to(self.device) for o in outs])
 
     @torch.no_grad()
     def get_embeddings_batch(self, windows):
@@ -164,7 +193,7 @@ class TorchResnetExtractor:
             if bucket != k:
                 part = torch.cat([part, part.new_zeros(
                     (bucket - k,) + tuple(part.shape[1:]))])
-            outs.append(self.net(part)[:k])
+            outs.append(self._forward(part)[:k])
         return torch.cat(outs).cpu().numpy()
 
     @torch.no_grad()
@@ -274,8 +303,9 @@ class VoiceFemininityScoring:
         :param xvector_net: a ``ResNetXVector`` module (default ResNet101).
         :param ffmpeg: the ffmpeg binary decoding any media, or ``None``
             (WAV input only).
-        :param mesh: must be None: sharding windows over several GPUs is
-            the multi-GPU engine's, not ported yet.
+        :param mesh: a 1-D ``parallel.mesh.Mesh``: the ResNet's window
+            sub-batches are split over its slots (``TorchResnetExtractor``);
+            the result is the one-device result.
         :param model_dir: the first model directory searched (see
             ``models.registry``).
 
@@ -287,17 +317,13 @@ class VoiceFemininityScoring:
         if backend not in ("jax", "onnx", "pytorch"):
             raise ValueError("backend must be 'jax', 'onnx' or 'pytorch' "
                              f"(accepted for API parity), got {backend!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= shards x-vector windows over several devices: that is "
-                "the multi-GPU engine, not ported yet (ROADMAP.md)")
         if gd_model_criteria not in ("bgc", "vfp"):
             raise ValueError("Gender detection model criteria must be 'bgc' "
                              f"or 'vfp', got {gd_model_criteria!r}")
         self.device = resolve_device(device)
         self.ffmpeg = check_ffmpeg(ffmpeg)
         self.xvector_model = TorchResnetExtractor(
-            xvector_params, xvector_net, self.device, model_dir)
+            xvector_params, xvector_net, self.device, model_dir, mesh)
         if gd_model_criteria == "bgc":
             gd_model = "interspeech2023_all.hdf5"
             self.vad_thresh = 0.7

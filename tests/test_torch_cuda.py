@@ -878,3 +878,158 @@ def test_patch_dataset_cuda_matches_cpu(dev):
         np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
         np.testing.assert_array_equal(got[1], want[1])
         np.testing.assert_array_equal(got[2], want[2])
+
+
+# -- the multi-GPU engine on a mesh of two slots on one card ----------------------
+
+def _card_mesh(dev, n=2):
+    from inaspeechsegmenter_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[dev] * n)
+
+
+def test_engine_on_two_slots_matches_segmenter(cuda_seg, tmp_path):
+    """``ParallelEngine`` on ``[cuda:0, cuda:0]``: a group of files runs
+    file k on slot k (its replica and its stream), a lone file spreads
+    its timeline; csvs byte-equal the Segmenter's, labels equal its own
+    per file."""
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+    from inaspeechsegmenter_tpu_torch.parallel import ParallelEngine
+
+    engine = ParallelEngine(cuda_seg, _card_mesh(cuda_seg.device))
+    wavs = []
+    for i, seconds in enumerate((20.0, 25.0, 2.0, 65.0)):
+        wavs.append(str(tmp_path / f"f{i}.wav"))
+        write_wav(wavs[-1], to_int16(speechlike(seconds, seed=50 + i,
+                                                silences=[(0.5, 1.2)])),
+                  16000)
+    outs = [str(tmp_path / "e" / f"f{i}.csv") for i in range(4)]
+    ref = [str(tmp_path / "s" / f"f{i}.csv") for i in range(4)]
+    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    _, n_ok, _, _ = engine.batch_process(wavs, outs)
+    assert n_ok == 4
+    # one features launch and three decodes a file, whatever the slot
+    assert fe_kernel.sidekit_features.launches == fe0 + 4
+    assert tv.viterbi_scan.launches == vt0 + 12
+    cuda_seg.batch_process(wavs, ref)
+    for a, b in zip(outs, ref):
+        assert open(a, "rb").read() == open(b, "rb").read()
+    assert engine(wavs[3]) == cuda_seg(wavs[3])
+
+
+def test_run_sharded_matches_run_on_the_card(cuda_seg):
+    from inaspeechsegmenter_tpu_torch.segmenter import patch_counts
+
+    t = 40_000
+    rng = np.random.default_rng(40)
+    mspec = rng.standard_normal((t, 24)).astype(np.float32)
+    loge = rng.standard_normal(t).astype(np.float32)
+    loge[: t // 5] = -20.0
+    loge[t // 2: t // 2 + t // 10] = -20.0
+    m = torch.from_numpy(mspec).to(cuda_seg.device)
+    lg = torch.from_numpy(loge).to(cuda_seg.device)
+    nfp, n20 = patch_counts(t, 0)
+    vt0 = tv.viterbi_scan.launches
+    got = cuda_seg.pipeline.run_sharded(m, lg, t, nfp, n20,
+                                        _card_mesh(cuda_seg.device))
+    assert tv.viterbi_scan.launches == vt0 + 3     # the tail's decodes
+    want = cuda_seg.pipeline.run(m, lg, t, nfp, n20)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_mesh_extractor_matches_one_slot(dev, monkeypatch):
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+    from inaspeechsegmenter_tpu_torch.vfs import TorchResnetExtractor
+
+    monkeypatch.setenv("ISS_XVEC_BATCH", "16")
+    net = ResNetXVector("bottleneck", (2, 2, 2, 2), 32, 64, 256)
+    params = net.init_params(seed=3)
+    one = TorchResnetExtractor(params, net, dev)
+    two = TorchResnetExtractor(params, ResNetXVector(
+        "bottleneck", (2, 2, 2, 2), 32, 64, 256), dev, mesh=_card_mesh(dev))
+    fea = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1000, 64)).astype(np.float32)).to(dev)
+    got, want = two("b", fea, 10.0), one("b", fea, 10.0)
+    assert [(k, s) for k, s, _ in got] == [(k, s) for k, s, _ in want]
+    a = np.stack([x for _, _, x in got])
+    b = np.stack([x for _, _, x in want])
+    rel = np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+    assert rel.max() <= 1e-4
+
+
+def test_trainer_2x2_step_matches_one_slot(dev, tmp_path):
+    """From one state (the one-slot trainer's checkpoint restored on the
+    2 x 2 mesh before each step), every step's loss within 1e-5 relative
+    and its summed gradients within 1e-4 of each array's largest
+    magnitude (the card's gradient bound above): the same step up to
+    float reassociation (free-running trajectories part faster: Adam
+    amplifies it, see PERF.md)."""
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+    from inaspeechsegmenter_tpu_torch.parallel import make_2d_mesh
+    from inaspeechsegmenter_tpu_torch.train import Trainer
+
+    spec, params = build_patch_cnn(21, 3, seed=0, size="full")
+    one = Trainer(spec, params, device=dev)
+    mesh = Trainer(spec, params, make_2d_mesh(2, 2, devices=[dev] * 4))
+    assert mesh.precision == "highest" and mesh._split
+    ckpt = str(tmp_path / "one.npz")
+    for seed in range(3):
+        x, y = _train_batch(n=256, seed=seed)
+        one.save_checkpoint(ckpt)
+        mesh.restore_checkpoint(ckpt)
+        got, want = mesh.train_step(x, y), one.train_step(x, y)
+        assert got == pytest.approx(want, rel=1e-5)
+        g_mesh = mesh._gathered(lambda p: p.grad)
+        for k, arrays in one._gathered(lambda p: p.grad).items():
+            for g, h in zip(arrays, g_mesh[k]):
+                if g is not None:
+                    torch.testing.assert_close(
+                        h, g, rtol=0,
+                        atol=1e-4 * float(g.abs().max()) + 1e-12)
+
+
+def test_same_tier_scopes_overlap_on_two_streams(dev):
+    """Two slot threads at one tier are inside their scopes at once, each
+    launching on its own stream; the two cooperative Viterbi grids and the
+    features kernel launched that way equal their plain versions."""
+    import threading
+
+    from inaspeechsegmenter_tpu_torch.models import layers as L
+    from inaspeechsegmenter_tpu_torch.parallel.mesh import (run_on_slots,
+                                                            slot_streams)
+
+    devices = [dev, dev]
+    streams = slot_streams(devices)
+    assert streams[0] != streams[1]
+    both = threading.Barrier(2, timeout=30)
+    consts = sidekit.frontend_consts(dev)
+    rng = np.random.default_rng(7)
+    sig = torch.from_numpy(to_int16(speechlike(60.0, seed=8))).to(dev)
+    T = 180_000
+    em = torch.from_numpy(np.log(rng.dirichlet(np.ones(3), T)).astype(
+        np.float32)).to(dev)
+    trans = torch.from_numpy(diag_trans_exp(80, 3).astype(
+        np.float32)).to(dev)
+    init = torch.full((3,), float(np.log(1 / 3)), device=dev)
+    reset = torch.zeros(T, dtype=torch.bool, device=dev)
+    reset[::5000] = True
+
+    def slot(k, _):
+        with L.precision_scope("highest"):
+            both.wait()
+            assert torch.cuda.current_stream(dev) == streams[k]
+            feats = fe_kernel.sidekit_features(sig, consts)
+            states = tv.viterbi_scan(em, trans, init, reset)
+            both.wait()
+        return feats, states
+
+    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    out = run_on_slots(slot, [None, None], devices, streams)
+    assert fe_kernel.sidekit_features.launches == fe0 + 2
+    assert tv.viterbi_scan.launches == vt0 + 2
+    want = tv.viterbi_scan_plain(em, trans, init, reset).cpu().numpy()
+    m_plain, l_plain = fe_kernel.sidekit_features_plain(sig, consts)
+    for (m, lg), states in out:
+        np.testing.assert_array_equal(states.cpu().numpy(), want)
+        torch.testing.assert_close(m, m_plain, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lg, l_plain, rtol=1e-5, atol=1e-5)

@@ -12,10 +12,7 @@ identical lseg and a byte-equal csv, with and without the stand-in.
 
 import os
 import shutil
-import stat
 import struct
-import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -27,48 +24,12 @@ from inaspeechsegmenter_tpu_torch.audio import io as tio
 from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
 from inaspeechsegmenter_tpu_torch.models.synthetic import (build_gender_mlp,
                                                            build_patch_cnn)
-from torch_parity_helpers import to_int16, voiced, write_spec_h5
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
+from torch_parity_helpers import (to_int16, voiced, write_fake_ffmpeg,
+                                  write_spec_h5)
 
 @pytest.fixture(scope="module")
 def fake_ffmpeg(tmp_path_factory):
-    script = tmp_path_factory.mktemp("bin") / "ffmpeg"
-    script.write_text(textwrap.dedent(f"""\
-        #!{sys.executable}
-        import struct, sys
-        import numpy as np
-        sys.path.insert(0, {os.path.join(REPO, "inaspeechsegmenter_tpu_torch",
-                                         "audio")!r})
-        from wav import read_wav          # the port's reader, without torch
-        args = sys.argv[1:]
-        def val(flag):
-            return args[args.index(flag) + 1] if flag in args else None
-        assert val('-f') == 'wav' and val('-acodec') == 'pcm_s16le'
-        assert val('-ar') == '16000' and val('-ac') == '1'
-        assert args[-1] == 'pipe:1'
-        try:
-            sig, sr = read_wav(val('-i'), dtype='float64')
-        except OSError as exc:
-            sys.stderr.write(str(exc))
-            sys.exit(1)
-        if sig.ndim > 1:
-            sig = sig.mean(axis=1)
-        if sr != 16000:
-            n = round(len(sig) * 16000 / sr)
-            spec = np.fft.rfft(sig)[:n // 2 + 1]
-            sig = np.fft.irfft(spec, n) * (n / len(sig))
-        a = int(float(val('-ss') or 0) * 16000)
-        b = int(float(val('-to')) * 16000) if val('-to') else len(sig)
-        pcm = np.clip(np.rint(sig[a:b] * 32768.0), -32768, 32767)
-        fmt = struct.pack('<HHIIHH', 1, 1, 16000, 32000, 2, 16)
-        sys.stdout.buffer.write(
-            b'RIFF' + b'\\xff' * 4 + b'WAVE' + b'fmt ' + struct.pack('<I', 16)
-            + fmt + b'data' + b'\\xff' * 4 + pcm.astype('<i2').tobytes())
-    """))
-    script.chmod(script.stat().st_mode | stat.S_IEXEC)
-    return str(script)
+    return write_fake_ffmpeg(tmp_path_factory.mktemp("bin"))
 
 
 @pytest.fixture(scope="module")

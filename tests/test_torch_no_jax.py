@@ -2,10 +2,10 @@
 JAX package.
 
 The machine with the GPU has none of them, so the port must neither import
-them (at module level, on the segmentation, VFS, online, scoring, training
-or job-farm path) nor name jax, optax, pandas, h5py or the JAX package
-``inaspeechsegmenter_tpu`` in an import anywhere in its sources or in
-``chip_smoke.py``.
+them (at module level, on the segmentation, VFS, online, scoring, training,
+job-farm or multi-GPU engine path) nor name jax, optax, pandas, h5py or the
+JAX package ``inaspeechsegmenter_tpu`` in an import anywhere in its sources
+or in ``chip_smoke.py``.
 """
 
 import os
@@ -35,6 +35,11 @@ seg = port.Segmenter("smn", True, ffmpeg=None, device="cpu",
                      model_dir="models")
 lseg = seg("t.wav")
 assert lseg[0][1] == 0.0 and abs(lseg[-1][2] - 2.98) < 1e-9, lseg
+from inaspeechsegmenter_tpu_torch.parallel import ParallelEngine, make_mesh
+engine = ParallelEngine(seg, make_mesh(devices=["cpu"] * 2))
+assert engine("t.wav") == lseg
+assert engine.batch_process(["t.wav"] * 3,
+                            ["e0.csv", "e1.csv", "e2.csv"])[1] == 3
 from inaspeechsegmenter_tpu_torch.cli import vfs  # noqa: F401
 from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
 net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
@@ -212,6 +217,10 @@ t = Trainer(model.spec, model.params, class_weight=class_weights(y, 3),
             device="cpu")
 losses = t.fit(x, y, epochs=2, batch_size=16)
 assert losses and np.isfinite(losses).all()
+from inaspeechsegmenter_tpu_torch.parallel import make_2d_mesh
+tm = Trainer(model.spec, model.params,
+             mesh=make_2d_mesh(2, 2, devices=["cpu"] * 4))
+assert tm._split and np.isfinite(tm.fit(x, y, batch_size=16)).all()
 t.save_checkpoint("ckpt")
 t.restore_checkpoint("ckpt")
 t.export_model("models/keras_speech_music_noise_cnn.npz")

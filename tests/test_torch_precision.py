@@ -14,6 +14,7 @@ to end; the VBx features run at ``highest`` whatever the process's flags.
 """
 
 import threading
+import time
 
 import jax
 import numpy as np
@@ -201,6 +202,68 @@ def test_scopes_on_two_threads_do_not_interleave(monkeypatch):
     assert not worker.is_alive()
     assert seen == [("nested", False, False), ("high", True, True),
                     ("other", False, False)]
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == (False, True)
+
+
+def test_scopes_at_one_tier_overlap(monkeypatch):
+    """Two threads at one tier are inside their scopes at once (the
+    engine's slots), under that tier's flags; the flags end as they
+    began."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    both = threading.Barrier(2, timeout=10)
+    seen = []
+
+    def slot():
+        with tl.precision_scope("highest"):
+            both.wait()                 # raises if the other is held back
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            both.wait()
+
+    workers = [threading.Thread(target=slot) for _ in range(2)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=20)
+    assert seen == [(False, False)] * 2
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == (True, True)
+
+
+def test_scopes_at_two_tiers_never_overlap(monkeypatch):
+    """Threads at two tiers, many entries each: a scope never runs while a
+    scope of the other tier is inside, always under its own tier's flags,
+    and both tiers got in (neither was starved)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    guard = threading.Lock()
+    inside = {"high": 0, "highest": 0}
+    faults, entries = [], {"high": 0, "highest": 0}
+
+    def run(tier, other):
+        for _ in range(150):
+            with tl.precision_scope(tier):
+                with guard:
+                    inside[tier] += 1
+                    entries[tier] += 1
+                    if inside[other]:
+                        faults.append("overlap")
+                if torch.backends.cuda.matmul.allow_tf32 != (tier == "high"):
+                    faults.append("flags")
+                time.sleep(0.0002)
+                with guard:
+                    inside[tier] -= 1
+
+    workers = [threading.Thread(target=run, args=(t, o)) for t, o in
+               [("high", "highest"), ("highest", "high")] * 3]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=60)
+    assert not any(w.is_alive() for w in workers)
+    assert faults == [] and entries == {"high": 450, "highest": 450}
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == (False, True)
 

@@ -31,6 +31,7 @@ from inaspeechsegmenter_tpu_torch.decode import viterbi as tvit
 from inaspeechsegmenter_tpu_torch.dsp import vbx_host as thost
 from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import KernelSidekitFrontend
 from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+from inaspeechsegmenter_tpu_torch.parallel import make_mesh
 from inaspeechsegmenter_tpu_torch.utils.timing import StageTimers, torch_trace
 from torch_parity_helpers import speechlike, to_int16
 
@@ -255,9 +256,12 @@ def test_reference_positional_constructor_order(synthetic_model_dir):
     with pytest.raises(ValueError, match="backend"):
         VoiceFemininityScoring("bgc", "tensorflow", ffmpeg=None,
                                device="cpu", model_dir=d)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        VoiceFemininityScoring("bgc", mesh=object(), ffmpeg=None,
-                               device="cpu", model_dir=d)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    vfs = VoiceFemininityScoring("bgc", "jax", False, params,
+                                 ResNetXVector(*TINY), None, mesh,
+                                 device="cpu", model_dir=d)
+    assert vfs.xvector_model.mesh is mesh
+    assert len(vfs.xvector_model.replicas) == 2
     with pytest.raises(TypeError):
         VoiceFemininityScoring("bgc", "jax", False, params,
                                ResNetXVector(*TINY), None, None, "cpu")

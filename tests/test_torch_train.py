@@ -289,12 +289,19 @@ def test_whole_step_runs_in_the_precision_scope(monkeypatch):
 
 
 def test_mesh_and_missing_card_raise():
+    """``mesh=`` takes a port mesh (tests/test_torch_train_mesh.py holds
+    its steps against the JAX mesh trainer); with no card the default
+    device and the default mesh raise."""
+    from inaspeechsegmenter_tpu_torch.parallel import make_2d_mesh as port_2d
+
     spec, params = build_patch_cnn(21, 3, seed=0, size="small")
-    with pytest.raises(NotImplementedError, match="multi-GPU engine"):
-        Trainer(spec, params, mesh1(), device="cpu")
+    t = Trainer(spec, params, port_2d(2, 1, devices=["cpu"] * 2))
+    assert t.mesh.shape == {"data": 2, "model": 1} and len(t.replicas) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(spec, params)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(spec, params, port_2d())
     with pytest.raises(TypeError):
         Trainer(spec, params, None, 1e-3, None, "cpu")
 

@@ -424,3 +424,87 @@ def test_extractor_embed_callable(port_vfs, mix_wav):
     every = range(0, n_frames - 144, 24)
     assert 0 < len(asked) < len(every) and set(asked) <= set(every)
     assert all(timeline.contains_point((s + 72) / 100.0) for s in asked)
+
+
+# -- the mesh: window sub-batches split over slots ------------------------------
+
+def _cpu_mesh(n):
+    from inaspeechsegmenter_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cpu"] * n)
+
+
+@pytest.mark.parametrize("batch", ["1", "7", "16", "100", "256"])
+def test_xvec_layout_matches_jax_mesh_ladder(xparams, monkeypatch, batch):
+    """``_xvec_layout`` rounds ``sub`` and every bucket up to a slot
+    multiple exactly as the JAX extractor does on 1, 5, 6 and 8 devices;
+    no mesh and a 1-slot mesh give the plain ladder."""
+    from inaspeechsegmenter_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    monkeypatch.setenv("ISS_XVEC_BATCH", batch)
+    plain = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu")
+    want = jvfs.JaxResnetExtractor(params=xparams, net=JaxResNet(*TINY))
+    assert plain._xvec_layout() == want._xvec_layout()
+    for n in (1, 5, 6, 8):
+        got = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu",
+                                        mesh=_cpu_mesh(n))._xvec_layout()
+        want = jvfs.JaxResnetExtractor(params=xparams, net=JaxResNet(*TINY),
+                                       mesh=jax_mesh(n))._xvec_layout()
+        assert got == want, n
+        sub, buckets = got
+        assert sub % n == 0 and all(b % n == 0 and b <= sub
+                                    for b in buckets)
+        assert all(next(x for x in buckets if x >= b) == b for b in buckets)
+    assert tvfs.TorchResnetExtractor(
+        xparams, ResNetXVector(*TINY), "cpu",
+        mesh=_cpu_mesh(1))._xvec_layout() == plain._xvec_layout()
+
+
+@pytest.mark.parametrize("n_slots", [8, 6])
+def test_mesh_extractor_matches_one_device_and_jax(xparams, monkeypatch,
+                                                   n_slots):
+    """The extractor on 8 (and a non-divisor 6) CPU slots with
+    ``ISS_XVEC_BATCH=16``: the same keys and starts as without a mesh and
+    as the JAX extractor sharded over as many devices, embeddings within
+    rtol 1e-4 / atol 1e-3 (the JAX test's tolerance); every forward runs
+    at a ladder size, split evenly over the slots' replicas."""
+    from inaspeechsegmenter_tpu.parallel.mesh import make_mesh as jax_mesh
+
+    monkeypatch.setenv("ISS_XVEC_BATCH", "16")
+    fea = np.random.default_rng(5).standard_normal((700, 64)).astype(
+        np.float32)
+    mesh = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu",
+                                     mesh=_cpu_mesh(n_slots))
+    one = tvfs.TorchResnetExtractor(xparams, ResNetXVector(*TINY), "cpu")
+    sizes = []
+    hooks = [r.register_forward_pre_hook(
+        lambda mod, args: sizes.append(args[0].shape[0]))
+        for r in mesh.replicas]
+    try:
+        got = mesh("b", torch.from_numpy(fea), 7.0)
+    finally:
+        for h in hooks:
+            h.remove()
+    sub, buckets = mesh._xvec_layout()
+    assert sizes and all(s * n_slots in buckets + [sub] for s in sizes)
+    base = one("b", torch.from_numpy(fea), 7.0)
+    want = jvfs.JaxResnetExtractor(params=xparams, net=JaxResNet(*TINY),
+                                   mesh=jax_mesh(n_slots))("b", fea, 7.0)
+    assert len(got) == len(base) == len(want) > 20
+    for (ka, sa, xa), (kb, sb, xb), (kc, sc, xc) in zip(got, base, want):
+        assert ka == kb == kc and sa == sb == sc
+        np.testing.assert_allclose(xa, xb, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(xa, xc, rtol=1e-4, atol=1e-3)
+
+
+def test_vfs_mesh_gives_the_same_result(port_vfs, synthetic_model_dir,
+                                        xparams, mix_wav, monkeypatch):
+    monkeypatch.setenv("ISS_XVEC_BATCH", "16")
+    vfs = VoiceFemininityScoring(
+        "vfp", ffmpeg=None, mesh=_cpu_mesh(4), device="cpu",
+        model_dir=synthetic_model_dir, xvector_net=ResNetXVector(*TINY),
+        xvector_params=xparams)
+    path, _ = mix_wav
+    got = vfs(path)
+    assert got == port_vfs(path)
+    assert got[2] > 0

@@ -293,3 +293,52 @@ def kernel_constant(source, name):
     with open(os.path.join(CSRC_DIR, source)) as fh:
         m = re.search(rf"constexpr int {name} = (\d+);", fh.read())
     return int(m.group(1))
+
+
+def write_fake_ffmpeg(directory):
+    """Write an executable ``ffmpeg`` stand-in into ``directory`` -> its
+    path.  Built on the port's WAV reader and numpy: it checks the flags
+    the reference builds, applies ``-ss`` / ``-to``, resamples (FFT) and
+    streams a WAV with bogus RIFF sizes like ``ffmpeg ... pipe:1``, so both
+    packages decode through it to the same signal."""
+    import stat
+    import sys
+    import textwrap
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(str(directory), "ffmpeg")
+    with open(script, "w") as fh:
+        fh.write(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import struct, sys
+        import numpy as np
+        sys.path.insert(0, {os.path.join(repo, "inaspeechsegmenter_tpu_torch",
+                                         "audio")!r})
+        from wav import read_wav          # the port's reader, without torch
+        args = sys.argv[1:]
+        def val(flag):
+            return args[args.index(flag) + 1] if flag in args else None
+        assert val('-f') == 'wav' and val('-acodec') == 'pcm_s16le'
+        assert val('-ar') == '16000' and val('-ac') == '1'
+        assert args[-1] == 'pipe:1'
+        try:
+            sig, sr = read_wav(val('-i'), dtype='float64')
+        except OSError as exc:
+            sys.stderr.write(str(exc))
+            sys.exit(1)
+        if sig.ndim > 1:
+            sig = sig.mean(axis=1)
+        if sr != 16000:
+            n = round(len(sig) * 16000 / sr)
+            spec = np.fft.rfft(sig)[:n // 2 + 1]
+            sig = np.fft.irfft(spec, n) * (n / len(sig))
+        a = int(float(val('-ss') or 0) * 16000)
+        b = int(float(val('-to')) * 16000) if val('-to') else len(sig)
+        pcm = np.clip(np.rint(sig[a:b] * 32768.0), -32768, 32767)
+        fmt = struct.pack('<HHIIHH', 1, 1, 16000, 32000, 2, 16)
+        sys.stdout.buffer.write(
+            b'RIFF' + b'\\xff' * 4 + b'WAVE' + b'fmt ' + struct.pack('<I', 16)
+            + fmt + b'data' + b'\\xff' * 4 + pcm.astype('<i2').tobytes())
+    """))
+    os.chmod(script, os.stat(script).st_mode | stat.S_IEXEC)
+    return script
