@@ -151,13 +151,34 @@ Phases, each fatal on failure (non-zero exit, no final line):
    180,000) launched at once from the two slots' threads on their own
    streams, each held against its plain version (phase 1's tolerances;
    states equal), then two launches of each timed on one stream and on two
-   streams.
+   streams;
+9. the overlapped speculative VFS scorer (``ISS_VFS_OVERLAP=1``; the
+   default ``auto`` takes the serial schedule, which phases 3 and 6 time):
+   (a) the 60 s and 10 min mixes through ``score_signal`` on the default
+   and the overlapped schedule in turns, 3 pairs each: tuples equal, each
+   wall, the windows dispatched, needed and caught up, the extras as a
+   share of the needed windows; the launches of one run of each against
+   the route (overlapped: one features launch a group, 2 Viterbi launches
+   for each chunk with a right neighbour and the final decode's 2;
+   serial: 1 and 2); the raw x-vectors that the overlapped run's
+   ``_EmbedSession.collect`` returns on the 10 min mix against the
+   extractor's own on the same starts (relative L2 per window within
+   ``XVEC_REL_LIMIT``; each window one step on lies farther off than the
+   limit, so a misplaced window fails); (b) one overlapped run with
+   ``torch.cuda.set_sync_debug_mode("error")`` from its first upload to
+   the exact decode (no host sync); (c) one run of each schedule under
+   ``torch.profiler`` (wall, device busy ms and share); (d) ``__call__``
+   on the 10 min WAV on both schedules, ``OnlineVFS`` over the 60 s mix
+   in 2 s blocks (``finalize()`` equal to ``score_signal``), and one
+   overlapped call of ``vbx_segmenter.VoiceFemininityScoring`` on the 60 s
+   WAV.
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-8, launches per file for
+summed over the main-path runs of phases 2-9, launches per file for
 segmentation, VFS, the online segmenter, the ffmpeg decode, each run
-of phase 6, phase 7's train and farm paths and phase 8's engine batch,
-sharded file and mesh VFS runs, ``bound_ms``: the larger of the
+of phase 6, phase 7's train and farm paths, phase 8's engine batch,
+sharded file and mesh VFS runs and phase 9's runs of each schedule,
+``bound_ms``: the larger of the
 bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
 card's name and power limit; the last line is the JSON result.  Every time
 is on the card that line names.  Imports nothing of JAX.
@@ -2391,6 +2412,250 @@ def phase_engine(torch, dev, workdir, seg, vfs, params, files, wavs, models,
     return per
 
 
+OVERLAP_ORDER = ("serial", "overlapped", "overlapped", "serial", "serial",
+                 "overlapped")      # 3 pairs in turns
+
+
+def overlap_route(n):
+    """(groups, chunks) the overlapped scorer uploads for ``n`` int16
+    samples: the frontend's chunks, one more where the signal's last
+    samples fall past them (the shared PCM must cover the signal)."""
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import GROUP_CHUNKS
+    from inaspeechsegmenter_tpu_torch.dsp.sidekit import (CHUNK, HOP,
+                                                          frame_count)
+
+    chunks = max(1, -(-frame_count(n) // CHUNK))
+    if n > (chunks * CHUNK + 2) * HOP:
+        chunks += 1
+    return -(-chunks // GROUP_CHUNKS), chunks
+
+
+def busy_share(torch, fn):
+    """``fn()`` once under ``torch.profiler`` -> (wall ms, device busy ms):
+    the kernels' and copies' device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+    return wall, busy
+
+
+XVEC_REL_LIMIT = 1e-3   # relative L2 of one window's x-vector (section 2)
+
+
+def collected_xvectors(vfs, sig, name, overlapped):
+    """One overlapped run of ``sig``, the raw x-vectors its
+    ``_EmbedSession.collect`` returned held against the extractor's own on
+    the same starts -> (per-window relative L2, that of each window one
+    STEP on against the window, number of windows speculated on)."""
+    from inaspeechsegmenter_tpu_torch import vfs as vfs_mod
+    from inaspeechsegmenter_tpu_torch.vfs import STEP, WINLEN
+
+    real = vfs_mod._EmbedSession.collect
+    seen = {}
+
+    def collect(self, fea, needed):
+        seen["speculated"] = {s for b, _ in self.batches for s in b}
+        got = real(self, fea, needed)
+        seen.update(fea=fea, needed=list(needed), got=np.stack(got))
+        return got
+
+    vfs_mod._EmbedSession.collect = collect
+    try:
+        overlapped(sig, name)
+    finally:
+        vfs_mod._EmbedSession.collect = real
+    xm, fea, needed = vfs.xvector_model, seen["fea"], seen["needed"]
+    want = xm.embeddings_from_features(fea, needed)
+    rel = (np.linalg.norm(seen["got"] - want, axis=1)
+           / np.linalg.norm(want, axis=1))
+    rows = [i for i, s in enumerate(needed)
+            if s + STEP + WINLEN <= fea.shape[0]]
+    moved = xm.embeddings_from_features(fea, [needed[i] + STEP
+                                              for i in rows])
+    rel_moved = (np.linalg.norm(moved - want[rows], axis=1)
+                 / np.linalg.norm(want[rows], axis=1))
+    return rel, rel_moved, len(seen["speculated"] & set(needed))
+
+
+def phase_overlap(torch, dev, vfs, files, wavs, models):
+    """Phase 9: the overlapped speculative VFS scorer
+    (``ISS_VFS_OVERLAP=1``) against the default serial schedule of an
+    int16 signal.  -> kernel launches by run."""
+    from inaspeechsegmenter_tpu_torch import OnlineVFS, vbx_segmenter
+    from inaspeechsegmenter_tpu_torch.vfs import TorchResnetExtractor
+
+    t_phase = time.perf_counter()
+    per = {}
+    check("ISS_VFS_OVERLAP" not in os.environ, "ISS_VFS_OVERLAP is set")
+
+    def serial(sig, name, scorer=None):
+        scorer = scorer or vfs.score_signal
+        vfs.overlap_stats = None
+        got = scorer(sig, name)
+        check(vfs.overlap_stats is None,
+              f"{name}: the default schedule was not the serial one")
+        return got
+
+    def overlapped(sig, name, scorer=None):
+        scorer = scorer or vfs.score_signal
+        os.environ["ISS_VFS_OVERLAP"] = "1"
+        try:
+            vfs.overlap_stats = None
+            got = scorer(sig, name)
+        finally:
+            os.environ.pop("ISS_VFS_OVERLAP")
+        check(vfs.overlap_stats is not None,
+              f"{name}: ISS_VFS_OVERLAP=1 did not take the overlapped scorer")
+        return got
+
+    # (a) both schedules in turns, and the launches against the route
+    runs = {"serial": serial, "overlapped": overlapped}
+    for name in ("mix60", "mix600"):
+        sig = files[name]
+        for sched in runs:                                  # warm
+            runs[sched](sig, name)
+        walls = {sched: [] for sched in runs}
+        results = set()
+        for sched in OVERLAP_ORDER:
+            t0 = time.perf_counter()
+            results.add(runs[sched](sig, name))
+            walls[sched].append(time.perf_counter() - t0)
+        check(len(results) == 1,
+              f"{name}: overlapped and serial tuples differ: {results}")
+        st = vfs.overlap_stats          # OVERLAP_ORDER ends overlapped
+        hit = st["needed"] - st["caught_up"]
+        extra = st["dispatched"] - hit
+        groups, chunks = overlap_route(len(sig))
+        reset_kernel_counts()
+        overlapped(sig, name)
+        torch.cuda.synchronize()
+        per[f"vfs_overlapped_{name}"] = got = kernel_counts()
+        want = {"sidekit_fe": groups, "viterbi": 2 * (chunks - 1) + 2,
+                "viterbi_general": 0}
+        check(got == want, f"{name}: overlapped launches {got}, the route "
+              f"gives {want}")
+        reset_kernel_counts()
+        serial(sig, name)
+        torch.cuda.synchronize()
+        per[f"vfs_serial_{name}"] = got_s = kernel_counts()
+        check(got_s == {"sidekit_fe": 1, "viterbi": 2, "viterbi_general": 0},
+              f"{name}: serial launches {got_s}")
+        log(f"[overlap] {name} ({len(sig) / SR!r} s, {chunks} chunks in "
+            f"{groups} groups): result {results.pop()} equal on both "
+            f"schedules; warm walls in turns (s) {walls}; medians serial "
+            f"{float(np.median(walls['serial']))!r} overlapped "
+            f"{float(np.median(walls['overlapped']))!r}; windows dispatched "
+            f"{st['dispatched']}, needed {st['needed']}, caught up "
+            f"{st['caught_up']} ({st['caught_up'] / st['needed']!r} of "
+            f"needed), extras {extra} ({extra / st['needed']!r} of needed), "
+            f"dispatched/needed {st['dispatched'] / st['needed']!r}; "
+            f"launches overlapped {got} (route: {groups} groups, 2 decodes "
+            f"for each of {chunks - 1} chunks with a right neighbour, 2 "
+            f"final), serial {got_s}")
+
+    # the x-vectors behind the equal tuples: the synthetic MLP scores 1.0
+    # whatever they are, so compare them before the MLP
+    sig = files["mix600"]
+    rel, rel_moved, n_spec = collected_xvectors(vfs, sig, "mix600",
+                                                overlapped)
+    check(n_spec > 0, "mix600: no window was speculated on")
+    check(float(rel.max()) <= XVEC_REL_LIMIT,
+          f"mix600: collected x-vectors off the extractor's by {rel.max()!r}"
+          f" relative L2 (limit {XVEC_REL_LIMIT})")
+    check(float(rel_moved.min()) > XVEC_REL_LIMIT,
+          f"mix600: a window one step on lies within the limit "
+          f"({rel_moved.min()!r}): the check cannot see a misplaced window")
+    log(f"[overlap] mix600 x-vectors from _EmbedSession.collect ({len(rel)} "
+        f"windows, {n_spec} speculated) vs embeddings_from_features on the "
+        f"same starts: relative L2 max {float(rel.max())!r}, median "
+        f"{float(np.median(rel))!r} (limit {XVEC_REL_LIMIT}); each window "
+        f"one step on: min {float(rel_moved.min())!r}, median "
+        f"{float(np.median(rel_moved))!r}")
+
+    # (b) no host sync between the first upload and the exact decode: the
+    # device runs everything queued in order, and one sync would make the
+    # host wait for every speculative sub-batch
+    pipe = vfs.vad.pipeline
+    real_decode = pipe.stream_decode
+
+    def decode_unchecked(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode(0)
+        return real_decode(*args, **kwargs)
+
+    pipe.stream_decode = decode_unchecked
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = overlapped(sig, "mix600")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del pipe.stream_decode
+    check(got == serial(sig, "mix600"), "the sync-checked run differs")
+    log("[overlap] mix600: no synchronizing CUDA call from the first upload "
+        "to the exact decode (torch.cuda.set_sync_debug_mode('error'))")
+
+    # (c) the device's busy share of one run of each schedule
+    shares = {}
+    for sched in runs:
+        wall, busy = busy_share(torch, lambda: runs[sched](sig, "mix600"))
+        shares[sched] = (wall, busy, busy / wall if wall else 0.0)
+    log(f"[overlap] mix600 under torch.profiler (wall ms, device busy ms, "
+        f"busy share): {shares}")
+
+    # (d) __call__ on the WAV, OnlineVFS, the reference import path
+    wav600 = wavs[list(files).index("mix600")]
+    want = serial(sig, "mix600")
+
+    def call(path, name):
+        return vfs(path)
+
+    check(serial(wav600, "mix600.wav", call) == want
+          and overlapped(wav600, "mix600.wav", call) == want,
+          "__call__ on the WAV differs from score_signal")
+    sig60 = files["mix60"]
+    reset_kernel_counts()
+    ov = OnlineVFS(vfs, "mix60")
+    for pos in range(0, len(sig60), 2 * SR):
+        ov.feed(sig60[pos:pos + 2 * SR])
+        ov.current()
+    got = ov.finalize()
+    torch.cuda.synchronize()
+    per["online_vfs_mix60"] = kernel_counts()
+    want60 = serial(sig60, "mix60")
+    check(got == want60, f"OnlineVFS.finalize {got} != score_signal "
+          f"{want60}")
+    ref = vbx_segmenter.VoiceFemininityScoring(
+        "bgc", ffmpeg=None, device=dev, model_dir=models,
+        allow_download=False)
+    check(vbx_segmenter.VBxExtractor is TorchResnetExtractor,
+          "vbx_segmenter.VBxExtractor")
+    wav60 = wavs[list(files).index("mix60")]
+    os.environ["ISS_VFS_OVERLAP"] = "1"
+    try:
+        ref.overlap_stats = None
+        got_ref = ref(wav60)
+    finally:
+        os.environ.pop("ISS_VFS_OVERLAP")
+    check(got_ref == want60 and ref.overlap_stats is not None,
+          f"vbx_segmenter's scorer {got_ref} != {want60}")
+    log(f"[overlap] __call__(mix600.wav) {want} on both schedules; "
+        f"OnlineVFS over mix60 in 2 s blocks finalize {got} == "
+        f"score_signal; vbx_segmenter.VoiceFemininityScoring(mix60.wav) "
+        f"{got_ref} overlapped; launches {per['online_vfs_mix60']} (online)")
+    log(f"[phase 9] overlapped VFS scorer: {time.perf_counter() - t_phase!r} "
+        "s")
+    return per
+
+
 def main():
     import torch
 
@@ -2431,6 +2696,7 @@ def main():
                                               files, wavs, models))
         per_ref.update(phase_engine(torch, dev, workdir, seg, vfs, params,
                                     files, wavs, models, speech_rate))
+        per_ref.update(phase_overlap(torch, dev, vfs, files, wavs, models))
     kernels.append(general)
     for k in kernels:
         name = k["name"]
@@ -2439,7 +2705,7 @@ def main():
         k["launches_per_file"] = {
             path: counts[name]
             for path, counts in {**earlier, **per_ref}.items()}
-        # the main-path runs of phases 2-8 (the kernels' comparisons with
+        # the main-path runs of phases 2-9 (the kernels' comparisons with
         # their plain versions excluded)
         k["launches"] = sum(c[name] for c in (
             launches, launches_vfs, per_online_file, launches_real,

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build
+from ..utils.device import upload
 from . import sidekit
 from .sidekit import (CHUNK, HOP, NBINS, NFFT, NMEL, WIN, FrontendConsts,
                       frame_count)
@@ -108,48 +109,70 @@ class KernelSidekitFrontend:
         self.device = torch.device(device)
         self.consts = sidekit.frontend_consts(self.device)
 
-    def mspec_loge(self, sig, keep_pcm=False):
+    def mspec_loge(self, sig, keep_pcm=False, pinned=False):
         """Host signal -> (mspec (T, 24), loge (T,), T) on ``self.device``.
 
         :param keep_pcm: also return the uploaded signal when it is int16
             (else None), as a fourth item: the VBx features of the VFS
             scorer reuse the VAD's upload (``dsp.vbx.features_from_pcm``).
+        :param pinned: upload through pinned memory without waiting for
+            the device's queue (``utils.device.upload``), for a caller
+            that has queued work behind which the upload must not wait.
         """
-        x = torch.from_numpy(_host_signal(sig)).to(self.device)
+        host = _host_signal(sig)
+        x = (upload(host, self.device) if pinned
+             else torch.from_numpy(host).to(self.device))
         mspec, loge = sidekit_features(x, self.consts)
         if keep_pcm:
             return (mspec, loge, mspec.shape[0],
                     x if x.dtype == torch.int16 else None)
         return mspec, loge, mspec.shape[0]
 
-    def group_feats(self, raw, k):
+    def group_feats(self, raw, k, keep_pcm=False):
         """Features of ONE group: ``raw`` (host samples) covers ``k`` chunks
         plus the 2*HOP lookahead, ``(k*CHUNK + 2)*HOP`` samples, which is
         exactly ``k*CHUNK`` frames, in one launch.  The one owner of the
         group computation, shared by :meth:`iter_group_feats` and the
         online segmenter.
 
-        :return: ([(mspec_c (CHUNK, 24), loge_c (CHUNK,))] * k, None), the
-            JAX ``SidekitFrontend.group_feats`` shape (no shared PCM).
+        :return: ([(mspec_c (CHUNK, 24), loge_c (CHUNK,))] * k, pcm), the
+            JAX ``SidekitFrontend.group_feats`` shape: ``pcm`` is the
+            group's uploaded int16 samples on the device with
+            ``keep_pcm`` and an int16 ``raw``, else None.  With
+            ``keep_pcm`` the group uploads through pinned memory: the
+            overlapped VFS scorer queues work between the groups.
         """
         if len(raw) != (k * CHUNK + 2) * HOP:
             raise ValueError(f"a group of {k} chunks takes "
                              f"{(k * CHUNK + 2) * HOP} samples, got {len(raw)}")
-        m, lg, _ = self.mspec_loge(raw)
-        return [(m[j * CHUNK:(j + 1) * CHUNK], lg[j * CHUNK:(j + 1) * CHUNK])
-                for j in range(k)], None
+        m, lg, _, pcm = self.mspec_loge(raw, keep_pcm=True,
+                                        pinned=keep_pcm)
+        return ([(m[j * CHUNK:(j + 1) * CHUNK], lg[j * CHUNK:(j + 1) * CHUNK])
+                 for j in range(k)], pcm if keep_pcm else None)
 
-    def iter_group_feats(self, sig):
-        """Yield ``(chunks_g, None)`` group by group over a whole signal,
-        zero-padded to a whole number of chunks (at least one)."""
+    def iter_group_feats(self, sig, keep_pcm=False):
+        """Yield ``(chunks_g, pcm)`` group by group over a whole signal,
+        zero-padded to a whole number of chunks (at least one); each
+        group's upload and launch are queued before it is yielded.
+
+        :param keep_pcm: yield each group's uploaded int16 samples (its
+            2*HOP lookahead included) for an int16 signal; the chunk count
+            then grows by one where the signal's last samples would fall
+            past the last chunk, so the groups' PCM covers the whole
+            signal (the JAX ``iter_group_feats``).
+        """
         sig = _host_signal(sig)
         n_chunks = max(1, -(-frame_count(len(sig)) // CHUNK))
         need = (n_chunks * CHUNK + 2) * HOP
+        keep_pcm = keep_pcm and sig.dtype == np.int16
+        if keep_pcm and len(sig) > need:
+            n_chunks += 1
+            need = (n_chunks * CHUNK + 2) * HOP
         sig = np.pad(sig[:need], (0, max(0, need - len(sig))))
         for g in range(0, n_chunks, GROUP_CHUNKS):
             k = min(GROUP_CHUNKS, n_chunks - g)
             yield self.group_feats(
-                sig[g * CHUNK * HOP:((g + k) * CHUNK + 2) * HOP], k)
+                sig[g * CHUNK * HOP:((g + k) * CHUNK + 2) * HOP], k, keep_pcm)
 
     def mspec_loge_chunks(self, sig):
         """Per-chunk device features -> ([(mspec_c, loge_c)], n_frames)."""

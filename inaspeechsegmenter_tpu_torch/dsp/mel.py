@@ -122,3 +122,26 @@ def kaldi_mel_fbank(winlen_nfft, fs, numchans=20, lofreq=0.0, hifreq=None,
     if lofreq > 0.0 and float(lofreq) / fs * nfft + 0.5 > cind[0] and htk_bug:
         mfb[cind[0], :] = 0.0
     return mfb
+
+
+def hz_to_mel_slaney(f):
+    """Slaney's mel scale: linear below 1 kHz, logarithmic above."""
+    f = np.asarray(f, dtype=np.float64)
+    f_sp = 200.0 / 3.0
+    brkfrq = 1000.0
+    brkpt = brkfrq / f_sp
+    logstep = np.exp(np.log(6.4) / 27.0)
+    return np.where(f < brkfrq, f / f_sp,
+                    brkpt + np.log(np.maximum(f, 1e-30) / brkfrq)
+                    / np.log(logstep))
+
+
+def mel_to_hz_slaney(z):
+    """The inverse of :func:`hz_to_mel_slaney`."""
+    z = np.asarray(z, dtype=np.float64)
+    f_sp = 200.0 / 3.0
+    brkfrq = 1000.0
+    brkpt = brkfrq / f_sp
+    logstep = np.exp(np.log(6.4) / 27.0)
+    return np.where(z < brkpt, f_sp * z,
+                    brkfrq * np.exp(np.log(logstep) * (z - brkpt)))

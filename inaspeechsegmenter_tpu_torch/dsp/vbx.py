@@ -215,7 +215,7 @@ class VbxFrontend:
         ln = piece.shape[0]
         x = piece.to(torch.float32) + dither_full[pos:pos + ln]
         if pos + ln > n_limit:
-            x[max(0, n_limit - pos):] = 0.0
+            x[max(0, n_limit - pos):].fill_(0.0)   # no host scalar copy
         start = _MARGIN + 120 + pos
         buf[start:start + ln] = x
 

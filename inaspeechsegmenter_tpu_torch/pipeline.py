@@ -48,6 +48,14 @@ def _f32(a, device):
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
+def _finite_sums(loge):
+    """-> (sum, count) of ``loge``'s finite values, float32 scalars on its
+    device."""
+    finite = torch.isfinite(loge)
+    return (torch.where(finite, loge, torch.zeros_like(loge)).sum(),
+            finite.sum().to(torch.float32))
+
+
 class FusedPipeline:
     """Device constants and the decodes for one engine configuration.
 
@@ -89,23 +97,28 @@ class FusedPipeline:
         stays the whole stream's mean) and the energy decode's initial
         log-distribution at ``loge[0]`` (a near-one-hot of the committed
         state at the seam)."""
-        finite = torch.isfinite(loge)
-        total = torch.where(finite, loge, torch.zeros_like(loge)).sum()
+        total, cnt = _finite_sums(loge)
         if ext is None:
-            cnt = finite.sum().clamp(min=1).to(torch.float32)
-            init = self.e_init
-        else:
-            ext_sum, ext_cnt, init = ext
-            cnt = (finite.sum().to(torch.float32)
-                   + np.float32(ext_cnt)).clamp(min=1)
-            total = total + np.float32(ext_sum)
-            init = _f32(init, loge.device)
-        thr = total / cnt + self.log_ratio.to(loge.device)
-        act = loge > thr
-        em = self.e_em[act.long()]
+            return self._energy_decode20(loge, total, cnt, self.e_init)
+        ext_sum, ext_cnt, init = ext
+        return self._energy_decode20(loge, total + np.float32(ext_sum),
+                                    cnt + np.float32(ext_cnt),
+                                    _f32(init, loge.device))
+
+    def _energy_decode20(self, loge, total, cnt, init):
+        """The energy decode of (T,) ``loge`` under the threshold of a
+        finite log-energy ``total`` over ``cnt`` frames (float32 scalars
+        on the device) -> (ceil(T/2),) bool 20 ms activity.  No host sync:
+        the overlapped VFS scorer's provisional step calls it with running
+        sums that stay on the device."""
+        # the log ratio enters as a host float (a host tensor copied to
+        # the device would wait for the device's queue), and the reset by
+        # fill_ (an indexed assignment of a host scalar synchronizes)
+        thr = total / cnt.clamp(min=1) + float(self.log_ratio)
+        em = self.e_em[(loge > thr).long()]
         reset = torch.zeros(loge.shape[0], dtype=torch.bool,
                             device=loge.device)
-        reset[0] = True
+        reset[:1].fill_(True)
         states = viterbi_scan(em.contiguous(), self.e_trans, init, reset)
         return states[::2] == 1
 

@@ -30,7 +30,22 @@ host work of their own.  ``batch_score`` prefetches the next files' VAD
 and VBx features on producer threads; ``online.OnlineVFS`` scores a
 growing recording.  With ``mesh=`` each sub-batch of windows is split
 over the mesh's slots, one ResNet replica each (``parallel/mesh.py``).
-Not ported: the overlapped speculative scorer.
+
+With ``ISS_VFS_OVERLAP`` set to a value other than ``auto`` (the default)
+and ``0``, an eligible int16 signal (``_overlap_eligible``: the standard
+VAD, the one-device extractor, the int16 grid, more than one feature
+chunk) takes the overlapped speculative scorer, the JAX package's default
+VFS path: as each upload group's features land, a provisional speech
+mask of each chunk (``_prov_step``) picks windows whose ResNet
+sub-batches are queued at once behind the VAD's own work
+(``_EmbedSession``); the exact decoded timeline then makes the final
+selection, the windows it missed are embedded in one catch-up batch and
+the extras are dropped, so the result equals the serial path's.
+``ISS_VFS_PROV_DILATE`` (default 12 frames of 20 ms) widens the mask, as
+in the JAX package.  Everything runs on one stream, in the order queued.
+``auto`` takes the serial schedule: on an H100 the device is busy 94-96%
+of a serial VFS run, so the speculation finds no idle time to fill and
+its extra windows only add work (PERF.md, section 5).
 """
 
 from __future__ import annotations
@@ -46,11 +61,14 @@ import torch
 from .annotations import SpeechTimeline
 from .audio.io import check_ffmpeg, media2sig16kmono
 from .dsp import vbx
+from .dsp.sidekit import CHUNK, frame_count
 from .dsp.vbx import VbxFrontend
 from .models.registry import load_patch_model, resolve_xvector_weights
 from .models.resnet import ResNet101XVector, pooled_freq
+from .pipeline import _finite_sums
 from .segmenter import Segmenter
-from .utils.device import resolve_device
+from .utils.device import (read_host_copy, resolve_device, start_host_copy,
+                           upload)
 from .utils.prefetch import run_prefetched, staged_producer
 from .utils.retry import retry_call
 
@@ -213,6 +231,17 @@ class TorchResnetExtractor:
             for g in range(0, nw, sub)])
 
     @torch.no_grad()
+    def dispatch_windows(self, fea, starts):
+        """Gather and embed ONE sub-batch of full windows -> the
+        (len(starts), 256) tensor on the device, with no host sync: the
+        overlapped scorer's speculative unit.  Callers pass a
+        ``_xvec_layout`` size, so every forward runs at a ladder size; a
+        window's embedding does not depend on the rest of its batch."""
+        st = upload(np.asarray(starts, np.int64), fea.device)
+        offs = torch.arange(WINLEN, device=fea.device)
+        return self._forward(fea[st[:, None] + offs[None, :]].transpose(1, 2))
+
+    @torch.no_grad()
     def get_embedding(self, fea):
         """Embedding of one (T, 64) window at its own length."""
         return self.net(fea.T[None])[0].cpu().numpy()
@@ -285,6 +314,83 @@ class TorchResnetExtractor:
         return [(key, seg, x * 10) for key, seg, x in xvectors]
 
 
+def _prov_step(pipe, s, cnt, probs_v, loge_c):
+    """One provisional-VAD step of the overlapped scorer (the JAX
+    ``_prov_step``) -> ``(s, cnt, mask)``, all on the device, no host sync.
+
+    Chunk c's finite log-energies fold into the running sum ``s`` and
+    count ``cnt`` (float32 device scalars); its (CHUNK,) frames then take
+    the pipeline's energy decode under the running threshold, and its
+    (CHUNK/2,) 20 ms frames the pipeline's masked VAD decode.  ``mask``:
+    the chunk's provisional speech frames.  Heuristic only (the chunk's
+    edges and the running threshold can disagree with the whole file's
+    decode): it picks the windows embedded early, and the exact timeline
+    makes the final call.
+    """
+    chunk_sum, chunk_cnt = _finite_sums(loge_c)
+    s, cnt = s + chunk_sum, cnt + chunk_cnt
+    energy20 = pipe._energy_decode20(loge_c, s, cnt, pipe.e_init)
+    v_states = pipe._masked_viterbi(probs_v, energy20, pipe.v_trans,
+                                    pipe.v_init)
+    return s, cnt, energy20 & (v_states == 0)
+
+
+class _EmbedSession:
+    """The overlapped scorer's speculative embeddings.
+
+    Windows queue as their provisional verdicts arrive; each full
+    ``_xvec_layout`` sub-batch is dispatched at once, and its embeddings'
+    copy to the host starts behind it (``start_host_copy``).  ``collect``
+    reads them, each after its own event, and embeds the windows the
+    speculation missed in one catch-up batch; ``n_speculative``,
+    ``n_needed`` and ``n_caught_up`` count the windows.
+    """
+
+    def __init__(self, xm):
+        self.xm = xm
+        self.sub, self.buckets = xm._xvec_layout()
+        self.pending = []
+        self.batches = []           # (real starts, host copy)
+        self.n_needed = self.n_caught_up = 0
+
+    def _dispatch(self, starts, real, fea):
+        self.batches.append((real, start_host_copy(
+            self.xm.dispatch_windows(fea, starts))))
+
+    def queue(self, start, fea):
+        self.pending.append(start)
+        if len(self.pending) >= self.sub:
+            batch, self.pending = (self.pending[:self.sub],
+                                   self.pending[self.sub:])
+            self._dispatch(batch, batch, fea)
+
+    def flush(self, fea):
+        """Dispatch the ragged remainder, padded with window 0 to its
+        layout bucket (the pads are dropped at ``collect``)."""
+        if self.pending:
+            k = len(self.pending)
+            bucket = next(x for x in self.buckets if x >= k)
+            self._dispatch(self.pending + [0] * (bucket - k), self.pending,
+                           fea)
+            self.pending = []
+
+    def collect(self, fea, needed):
+        """The extractor's ``embed``: the raw embeddings of ``needed``
+        window starts, speculative ones and one catch-up batch."""
+        done = {}
+        for batch, copy in self.batches:
+            done.update(zip(batch, read_host_copy(copy)))
+        missing = [s for s in needed if s not in done]
+        done.update(zip(missing, self.xm.embeddings_from_features(
+            fea, missing)))
+        self.n_needed, self.n_caught_up = len(needed), len(missing)
+        return [done[s] for s in needed]
+
+    @property
+    def n_speculative(self):
+        return sum(len(b) for b, _ in self.batches) + len(self.pending)
+
+
 class VoiceFemininityScoring:
     """Voice femininity scoring with the reference constructor contract
     (vbx_segmenter.py:97-127), on ``device``."""
@@ -336,6 +442,7 @@ class VoiceFemininityScoring:
                              ffmpeg=ffmpeg, allow_download=allow_download,
                              device=self.device, model_dir=model_dir)
         self.features = VbxFrontend(self.device)
+        self.overlap_stats = None   # the last overlapped run's window counts
 
     def apply_vad(self, xvectors, timeline: SpeechTimeline):
         """Keep windows whose midpoint is in speech and whose speech overlap
@@ -354,8 +461,12 @@ class VoiceFemininityScoring:
     def _prepare(self, fpath):
         """Decode + VAD + VBx features (everything before the ResNet):
         -> (basename, fea | None, timeline, duration, speech_duration)."""
+        return self._prepare_decoded(fpath, media2sig16kmono(
+            fpath, ffmpeg=self.ffmpeg, dtype="auto"))
+
+    def _prepare_decoded(self, fpath, sig):
+        """``_prepare`` of the file's ``dtype="auto"`` decode ``sig``."""
         basename = os.path.splitext(os.path.basename(fpath))[0]
-        sig = media2sig16kmono(fpath, ffmpeg=self.ffmpeg, dtype="auto")
         # a non-PCM16 source is decoded once more in float64 for the
         # features, as the reference does (vbx_segmenter.py:160-164)
         signal = None if sig.dtype == np.int16 else media2sig16kmono(
@@ -407,8 +518,10 @@ class VoiceFemininityScoring:
             raise TypeError(
                 "score_signal needs the standard Segmenter VAD (an injected "
                 "path-based VAD callable cannot consume a signal)")
-        return self._score_prepared(self._prepare_signal(np.asarray(sig),
-                                                         basename))
+        sig = np.asarray(sig)
+        if self._overlap_eligible() and self._overlap_eligible_signal(sig):
+            return self._score_signal_overlapped(sig, basename)
+        return self._score_prepared(self._prepare_signal(sig, basename))
 
     def _score_prepared(self, prepared):
         """ResNet + gender MLP on prepared features
@@ -448,7 +561,140 @@ class VoiceFemininityScoring:
 
     def __call__(self, fpath):
         """-> (score | None, speech_duration_s, n_retained_xvectors)."""
-        return self._score_prepared(self._prepare(fpath))
+        if not self._overlap_eligible():
+            return self._score_prepared(self._prepare(fpath))
+        sig = media2sig16kmono(fpath, ffmpeg=self.ffmpeg, dtype="auto")
+        if self._overlap_eligible_signal(sig):
+            return self._score_signal_overlapped(
+                sig, os.path.splitext(os.path.basename(fpath))[0])
+        return self._score_prepared(self._prepare_decoded(fpath, sig))
+
+    # -- the overlapped scorer ---------------------------------------------
+    #
+    # The serial shape is [upload + VAD] then [x-vectors]: the windows to
+    # embed are known only once the whole timeline is decoded.  The
+    # overlapped scorer speculates instead: as each upload group lands, its
+    # PCM feeds the VBx feature blocks (``VbxPcmStream``, equal to the
+    # whole-file features bit for bit) and each chunk's provisional mask
+    # picks the windows to embed now.  The result does not depend on the
+    # mask: an embedding depends only on final feature rows, the final
+    # selection re-runs the reference filters on the exact timeline, and
+    # misses are caught up (tests/test_torch_vfs_overlap.py).
+
+    def _overlap_eligible(self):
+        """The gates that do not depend on the signal: ``ISS_VFS_OVERLAP``
+        neither ``auto`` nor ``0`` (the JAX package's ``auto`` takes the
+        overlap; here it takes the serial schedule, see the module's
+        docstring), the standard Segmenter VAD, the one-device x-vector
+        extractor and the int16 VBx grid."""
+        return (os.environ.get("ISS_VFS_OVERLAP", "auto") not in ("auto",
+                                                                  "0")
+                and isinstance(self.vad, Segmenter)
+                and isinstance(self.xvector_model, TorchResnetExtractor)
+                and self.xvector_model.mesh is None
+                and isinstance(self.features, VbxFrontend)
+                and vbx.vbx_i16_enabled(self.device))
+
+    @staticmethod
+    def _overlap_eligible_signal(sig):
+        """int16 PCM of more than one feature chunk (which implies the
+        JAX gates' 400 samples and 68 frames)."""
+        return sig.dtype == np.int16 and frame_count(len(sig)) > CHUNK
+
+    @torch.no_grad()
+    def _score_signal_overlapped(self, sig, basename="<signal>"):
+        """Score an int16 signal with the ResNet queued behind the VAD;
+        the serial ``score_signal``'s result.  The window counts of the
+        run are left in ``overlap_stats``."""
+        seg = self.vad
+        pipe = seg.pipeline
+        n = len(sig)
+        t = frame_count(n)
+        n20 = (t + 1) // 2
+        vstream = vbx.VbxPcmStream(self.features, n)
+        session = _EmbedSession(self.xvector_model)
+        dilate = max(0, int(os.environ.get("ISS_VFS_PROV_DILATE", "12")))
+        # every full window's start in VBx frames, and the 20 ms frame
+        # holding its midpoint
+        all_starts = np.arange(0, (n - 80) // 160 + 1 - WINLEN, STEP)
+        queued = np.zeros(len(all_starts), bool)
+        mid20 = np.minimum(((all_starts + WINLEN / 2) / 100.0 / 0.02)
+                           .astype(np.int64), max(n20 - 1, 0))
+        chunks, probs = [], []
+        masks = []              # host copies of each chunk's mask
+        masks_np = []           # the prefix of them read so far
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        stats = (zero, zero)
+
+        def dispatch_chunk_work():
+            """Emissions and the provisional mask of every chunk whose
+            right halo has arrived; the mask's copy to the host starts at
+            once and is read one group later."""
+            nonlocal stats
+            while len(probs) < len(chunks) - 1:
+                c = len(probs)
+                probs.append(pipe.chunk_emissions(chunks, c))
+                s, cnt, mask = _prov_step(pipe, *stats, probs[c],
+                                          chunks[c][1])
+                stats = (s, cnt)
+                masks.append(start_host_copy(mask))
+
+        def select_and_embed(ready):
+            """Read the masks of the first ``ready`` chunks and queue every
+            window whose feature rows are final and whose midpoint is
+            provisional speech (within ``dilate`` frames)."""
+            while len(masks_np) < min(ready, len(masks)):
+                masks_np.append(read_host_copy(masks[len(masks_np)]))
+            if not masks_np:
+                return
+            prov = np.concatenate(masks_np)
+            if dilate:
+                c = np.zeros(len(prov) + 1, np.int64)
+                np.cumsum(prov, out=c[1:])
+                lo = np.maximum(np.arange(len(prov)) - dilate, 0)
+                hi = np.minimum(np.arange(len(prov)) + dilate + 1, len(prov))
+                prov = (c[hi] - c[lo]) > 0
+            ok = (~queued & (all_starts + WINLEN <= vstream.frames_ready)
+                  & (mid20 < len(prov)))
+            ok[ok] = prov[mid20[ok]]
+            for i in np.flatnonzero(ok):
+                queued[i] = True
+                session.queue(int(all_starts[i]), vstream.fea_buffer)
+
+        pending_pcm = None
+        for chunks_g, pcm in seg.frontend.iter_group_feats(sig,
+                                                           keep_pcm=True):
+            # this group's upload and features are queued: queue the
+            # dependent work, then read the masks of the groups before
+            ready_before = len(masks)
+            chunks.extend(chunks_g)
+            if pending_pcm is not None:
+                # the next group's PCM starts at the lookahead's first
+                # sample: strip its 2*HOP samples
+                vstream.append(pending_pcm[:pending_pcm.shape[0] - 320])
+            pending_pcm = pcm
+            dispatch_chunk_work()
+            select_and_embed(ready_before)
+        vstream.append(pending_pcm)
+        # the last chunk has no right halo (run_streaming's frontier)
+        probs.append(pipe.chunk_emissions(chunks, len(chunks) - 1))
+        select_and_embed(len(masks))
+        session.flush(vstream.fea_buffer)
+
+        ids = pipe.stream_decode(chunks, probs, t, t, n20)[:n20]
+        timeline = SpeechTimeline.from_vad(seg.ids_to_lseg(ids.cpu().numpy()))
+        speech_duration = timeline.total_duration()
+        result = (None, speech_duration, 0)
+        if speech_duration:
+            x_vectors = self.xvector_model(basename, vstream.finish(), n / SR,
+                                           timeline=timeline,
+                                           embed=session.collect)
+            result = self._score_xvectors(x_vectors, timeline,
+                                          speech_duration)
+        self.overlap_stats = {"dispatched": session.n_speculative,
+                              "needed": session.n_needed,
+                              "caught_up": session.n_caught_up}
+        return result
 
     # ------------------------------------------------------------------
     def batch_score(self, linput, loutput, verbose=False, skipifexist=False,

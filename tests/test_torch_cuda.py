@@ -1033,3 +1033,111 @@ def test_same_tier_scopes_overlap_on_two_streams(dev):
         np.testing.assert_array_equal(states.cpu().numpy(), want)
         torch.testing.assert_close(m, m_plain, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(lg, l_plain, rtol=1e-5, atol=1e-5)
+
+
+# -- the overlapped speculative VFS scorer -----------------------------------
+
+def _overlap_vfs(dev, models, seed=7):
+    from inaspeechsegmenter_tpu_torch import VoiceFemininityScoring
+    from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+
+    net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
+    return VoiceFemininityScoring("vfp", ffmpeg=None, device=dev,
+                                  model_dir=models, xvector_net=net,
+                                  xvector_params=net.init_params(seed=seed),
+                                  allow_download=False)
+
+
+def _overlap_signal(n):
+    sec = n / 16000
+    return to_int16(voiced(sec, seed=n % 97, silences=[
+        (20.0, 23.0), (sec / 2, sec / 2 + 1.5), (sec - 9.0, sec - 8.2)]))
+
+
+# 150 s: 4 chunks in 2 groups; 4 chunks' samples and 30 more: a 5th chunk
+@pytest.mark.parametrize("n", [150 * 16000, (4 * 4096 + 2) * 160 + 30])
+def test_overlapped_vfs_equals_serial_and_cpu(dev, small_models,
+                                              monkeypatch, n):
+    """On the card ``score_signal`` takes the serial schedule by default
+    (``ISS_VFS_OVERLAP=auto``) and the overlapped scorer with
+    ``ISS_VFS_OVERLAP=1``: its tuple equals the serial path's and the
+    CPU's overlapped run's (both on the int16 grid), and it launches one
+    features kernel a group and two Viterbi decodes for each chunk with a
+    right neighbour, plus the final decode's two."""
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import GROUP_CHUNKS
+
+    CHUNK, HOP = sidekit.CHUNK, sidekit.HOP
+    sig = _overlap_signal(n)
+    vfs = _overlap_vfs(dev, small_models)
+    monkeypatch.delenv("ISS_VFS_OVERLAP", raising=False)
+    vfs.overlap_stats = None
+    serial = vfs.score_signal(sig)
+    assert vfs.overlap_stats is None
+    monkeypatch.setenv("ISS_VFS_OVERLAP", "1")
+    chunks = -(-sidekit.frame_count(n) // CHUNK)
+    chunks += n > (chunks * CHUNK + 2) * HOP
+    vfs.score_signal(sig)                                    # warm
+    fe0, vt0 = fe_kernel.sidekit_features.launches, tv.viterbi_scan.launches
+    vfs.overlap_stats = None
+    got = vfs.score_signal(sig)
+    assert vfs.overlap_stats is not None
+    assert fe_kernel.sidekit_features.launches - fe0 == -(-chunks
+                                                          // GROUP_CHUNKS)
+    assert tv.viterbi_scan.launches - vt0 == 2 * (chunks - 1) + 2
+    assert serial == got and got[2] > 0
+    monkeypatch.setenv("ISS_VFS_OVERLAP", "0")
+    assert vfs.score_signal(sig) == got
+    monkeypatch.setenv("ISS_VFS_OVERLAP", "1")
+    int16_grid_on_cpu(monkeypatch)
+    cpu = _overlap_vfs("cpu", small_models)
+    assert cpu.score_signal(sig) == got
+    assert cpu.overlap_stats["needed"] == vfs.overlap_stats["needed"]
+
+
+def test_overlapped_vfs_makes_no_host_sync(dev, small_models, monkeypatch):
+    """From the first upload to the exact decode the scorer queues work
+    and waits only on its own copies' events: no synchronizing call."""
+    monkeypatch.setenv("ISS_VFS_OVERLAP", "1")
+    vfs = _overlap_vfs(dev, small_models)
+    sig = _overlap_signal(150 * 16000)
+    want = vfs.score_signal(sig)             # warm: dither, cuDNN, pinned
+    pipe = vfs.vad.pipeline
+    real = pipe.stream_decode
+
+    def decode(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode(0)
+        return real(*args, **kwargs)
+
+    pipe.stream_decode = decode
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vfs.overlap_stats = None
+        got = vfs.score_signal(sig)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del pipe.stream_decode
+    assert got == want and vfs.overlap_stats is not None
+
+
+def test_embed_session_pinned_copies_equal_the_extractor(dev, small_models,
+                                                         monkeypatch):
+    """Speculative sub-batches read back from pinned memory after their
+    events equal the extractor's own embeddings (1e-4 relative L2: batch
+    sizes differ), pads dropped, misses caught up."""
+    from inaspeechsegmenter_tpu_torch.vfs import _EmbedSession
+
+    monkeypatch.setenv("ISS_XVEC_BATCH", "8")
+    xm = _overlap_vfs(dev, small_models).xvector_model
+    fea = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (144 + 24 * 40, 64)).astype(np.float32)).to(dev)
+    sess = _EmbedSession(xm)
+    for s in range(0, 24 * 21, 24):
+        sess.queue(s, fea)
+    sess.flush(fea)
+    needed = list(range(0, 24 * 30, 48))
+    got = np.stack(sess.collect(fea, needed))
+    assert (sess.n_speculative, sess.n_needed, sess.n_caught_up) == (21, 15,
+                                                                    4)
+    want = xm.embeddings_from_features(fea, needed)
+    rel = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+    assert rel.max() <= 1e-4

@@ -5,7 +5,11 @@ The machine with the GPU has none of them, so the port must neither import
 them (at module level, on the segmentation, VFS, online, scoring, training,
 job-farm or multi-GPU engine path) nor name jax, optax, pandas, h5py or the
 JAX package ``inaspeechsegmenter_tpu`` in an import anywhere in its sources
-or in ``chip_smoke.py``.
+or in ``chip_smoke.py``: neither on those paths nor on the reference's
+import paths (``io``, ``remote_utils``, ``viterbi_utils``,
+``pyannote_viterbi``, ``features_vbx``, ``vbx_segmenter``, ``resnet``,
+``export_funcs``, ``thread_returning``, ``sidekit_mfcc``) and the
+overlapped VFS scorer.
 """
 
 import os
@@ -244,6 +248,64 @@ def test_score_train_and_farm_without_jax(tmp_path):
     optax, pandas, h5py or the JAX package fails."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", CODE_TRAIN_SCORE_FARM],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO-JAX-OK" in r.stdout
+
+
+CODE_REFERENCE_PATHS = r"""
+import sys
+for m in ("jax", "jaxlib", "optax", "pandas", "h5py",
+          "inaspeechsegmenter_tpu"):
+    sys.modules[m] = None                # importing them now raises
+import importlib
+import os
+import numpy as np
+MODULES = ("io", "remote_utils", "viterbi_utils", "pyannote_viterbi",
+           "features_vbx", "vbx_segmenter", "resnet", "export_funcs",
+           "thread_returning", "sidekit_mfcc")
+mods = {m: importlib.import_module("inaspeechsegmenter_tpu_torch." + m)
+        for m in MODULES}
+from inaspeechsegmenter_tpu_torch.dsp import vbx
+from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+from inaspeechsegmenter_tpu_torch.models.synthetic import install_synthetic_models
+
+vbx.vbx_i16_enabled = lambda device: True       # the grid, also on the CPU
+install_synthetic_models("models", size="small")
+sig = np.random.default_rng(0).standard_normal(16000)
+ceps = mods["sidekit_mfcc"].mfcc(sig)[0]
+assert ceps.shape == (98, 13), ceps.shape
+assert mods["features_vbx"].mel_fbank_mx(400, 16000).shape == (257, 20)
+assert mods["resnet"].ResNet101().num_blocks == (3, 4, 23, 3)
+net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
+scorer = mods["vbx_segmenter"].VoiceFemininityScoring(
+    "bgc", "jax", False, net.init_params(seed=0), net, None, device="cpu",
+    model_dir="models")
+t = np.arange(16000 * 45) / 16000
+pcm = (8000 * np.sin(2 * np.pi * 1000 * t)).astype(np.int16)
+pcm[16000 * 20:16000 * 22] = 0
+os.environ["ISS_VFS_OVERLAP"] = "1"
+got = scorer.score_signal(pcm)
+assert scorer.overlap_stats is not None, "not the overlapped path"
+os.environ["ISS_VFS_OVERLAP"] = "auto"
+scorer.overlap_stats = None
+assert scorer.score_signal(pcm) == got
+assert scorer.overlap_stats is None, "auto took the overlapped path"
+bad = [m for m in ("jax", "jaxlib", "optax", "pandas", "h5py",
+                   "inaspeechsegmenter_tpu") if sys.modules.get(m)]
+assert not bad, bad
+print("NO-JAX-OK")
+"""
+
+
+def test_reference_paths_and_overlapped_scorer_without_jax(tmp_path):
+    """The ten reference import-path modules and the overlapped VFS
+    scorer, in a process where importing jax, optax, pandas, h5py or the
+    JAX package fails."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("ISS_VFS_OVERLAP", None)
+    r = subprocess.run([sys.executable, "-c", CODE_REFERENCE_PATHS],
                        cwd=tmp_path, env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
