@@ -171,14 +171,38 @@ Phases, each fatal on failure (non-zero exit, no final line):
    on the 10 min WAV on both schedules, ``OnlineVFS`` over the 60 s mix
    in 2 s blocks (``finalize()`` equal to ``score_signal``), and one
    overlapped call of ``vbx_segmenter.VoiceFemininityScoring`` on the 60 s
-   WAV.
+   WAV;
+10. the installed package: (a) the checkout's wheel (``pip wheel --no-deps
+   --no-build-isolation``, then ``pip install --no-deps --no-index
+   --target``; a host without setuptools fails the phase), the wheel and
+   the setuptools version printed; (b) ``tools.prewarm`` run from the
+   install (``PYTHONPATH`` the target only, the working directory outside
+   the checkout, an empty ``ISS_TORCH_BUILD_DIR``): the package imported
+   from the target, the cold kernel build's seconds; (c) the installed
+   ``ina_speech_segmenter_torch`` console script (``-b none``, the default
+   device) on the 60 s and 10 min WAVs, once plain (the first-request
+   wall) and once with ``ISS_TRACE_DIR`` set: csvs byte-equal to phase
+   2's, the build directory's files and mtimes unchanged (nothing
+   rebuilt), both path kernels named in each trace, each wall printed;
+   (d-g) one runner process on the install: its start-up split (the
+   interpreter, the ``torch`` import, the port's import, the CUDA context,
+   the Segmenter's construction, the first 10 min file), the 10 min
+   WAV's kernel launches (1 features, 3 K <= 3 Viterbi, 0 general), phase
+   6(f)'s 44.1 kHz WAV without ffmpeg (labels equal to 6(f)'s, the native
+   library built from the package's source into that build directory), 16
+   two-second WAVs through one Segmenter (``memory_allocated`` after the
+   second 8 within 1 MiB of its value after the first 8,
+   ``max_memory_allocated`` printed) and ``tools.verify_weights
+   --report-only`` over phase 5's ``.hdf5`` set with the x-vector npz
+   (exit 0, every file's forward PASS) and over phase 2's synthetic set
+   (each stand-in reported as synthetic).
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-9, launches per file for
+summed over the main-path runs of phases 2-10, launches per file for
 segmentation, VFS, the online segmenter, the ffmpeg decode, each run
 of phase 6, phase 7's train and farm paths, phase 8's engine batch,
-sharded file and mesh VFS runs and phase 9's runs of each schedule,
-``bound_ms``: the larger of the
+sharded file and mesh VFS runs, phase 9's runs of each schedule and
+phase 10's installed 10 min file, ``bound_ms``: the larger of the
 bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
 card's name and power limit; the last line is the JSON result.  Every time
 is on the card that line names.  Imports nothing of JAX.
@@ -1837,7 +1861,7 @@ def phase_dnn_stage(torch, dev, seg, files, models):
 
 def phase_resampled(torch, dev, workdir, seg, files, wavs):
     """6(f): a 44.1 kHz WAV with ``ffmpeg=None`` through the native
-    resampler.  -> the kernel launches of that file."""
+    resampler.  -> the kernel launches of that file, its labels."""
     from inaspeechsegmenter_tpu_torch.audio import native
     from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
 
@@ -1864,22 +1888,24 @@ def phase_resampled(torch, dev, workdir, seg, files, wavs):
           "resampled segments do not tile the file")
     check_segmentation_launches(launches, "the resampled file")
     check(launches["sidekit_fe"] == 1, "the resampled file skipped features")
-    return launches
+    return launches, got
 
 
 def phase_reference(torch, dev, workdir, seg, vfs, files, wavs, models,
                     speech_rate):
     """Phase 6: the int16 grid, the tail bucket, the online VFS stream, the
-    general-K Viterbi, the per-stage API and the resampler."""
+    general-K Viterbi, the per-stage API and the resampler.  -> the general
+    kernel's entry, the launches of each run, the resampled labels."""
     fea16, per_vfs = phase_vbx_grid(torch, dev, vfs, files)
     phase_bucket(torch, vfs, fea16, speech_rate)
     per_online = phase_online_vfs(torch, vfs, files)
     entry, per_api = phase_general_viterbi(torch, dev)
     per_stage = phase_dnn_stage(torch, dev, seg, files, models)
-    per_resampled = phase_resampled(torch, dev, workdir, seg, files, wavs)
+    per_resampled, resampled = phase_resampled(torch, dev, workdir, seg,
+                                               files, wavs)
     return entry, {"vfs_int16_grid": per_vfs, "online_vfs": per_online,
                    "viterbi_decoding": per_api, "dnn_stage": per_stage,
-                   "resampled_wav": per_resampled}
+                   "resampled_wav": per_resampled}, resampled
 
 
 # --------------------------------------------------------------------------
@@ -2416,6 +2442,167 @@ OVERLAP_ORDER = ("serial", "overlapped", "overlapped", "serial", "serial",
                  "overlapped")      # 3 pairs in turns
 
 
+MESH_STEP_FLAG = "--mesh-step-repeats"
+
+
+def decision_hooks(torch, model, store):
+    """Forward hooks on ``model``'s layers that append each call's
+    decisions to ``store`` (layer name -> list): a ReLU layer's output, a
+    VALID max-pool's input with the flat index of each window's winner.
+    -> the hook handles."""
+    import torch.nn.functional as F
+    from inaspeechsegmenter_tpu_torch.models import layers as L
+
+    def relu(name):
+        return lambda mod, args, out: store.setdefault(name, []).append(
+            out.detach())
+
+    def pool(name):
+        def hook(mod, args, out):
+            x = args[0].detach()
+            _, idx = F.max_pool2d(x, mod.pool, mod.stride,
+                                  return_indices=True)
+            store.setdefault(name, []).append((x, idx))
+        return hook
+
+    handles = []
+    for name, index, _, _ in model._plan:
+        layer = None if index is None else model.layers[index]
+        if getattr(layer, "act", None) is F.relu:
+            handles.append(layer.register_forward_hook(relu(name)))
+        elif isinstance(layer, L.MaxPool2D) and layer.padding == "VALID":
+            handles.append(layer.register_forward_hook(pool(name)))
+    return handles
+
+
+def decision_flips(torch, ref, mesh):
+    """Decisions of the one-slot forward (``ref``) against the mesh rows'
+    (``mesh``, rows in batch order) -> {layer: (flips, widest gap)}: ReLU
+    outputs zero on one side only, the gap the larger such output; max-pool
+    windows with another winner, the gap between the two candidates'
+    values in the one-slot input."""
+    out = {}
+    for name, (got,) in ref.items():
+        rows = mesh[name]
+        if isinstance(got, tuple):
+            x, idx = got
+            other = torch.cat([i.to(idx.device) for _, i in rows])
+            flat = x.flatten(2)
+            flip = idx != other
+            gap = (flat.gather(2, idx.flatten(2))
+                   - flat.gather(2, other.flatten(2))).abs()[flip.flatten(2)]
+        else:
+            other = torch.cat([r.to(got.device) for r in rows])
+            flip = (got > 0) != (other > 0)
+            gap = torch.maximum(got, other)[flip]
+        out[name] = (int(flip.sum()),
+                     float(gap.max()) if gap.numel() else 0.0)
+    return out
+
+
+def mesh_step_diagnosis(torch, dev, workdir, repeats):
+    """``--mesh-step-repeats N``: phase 8(d)'s same-state comparison of the
+    2x1 and 2x2 trainers with the 1x1 trainer, ``N`` times each from a
+    fresh 1x1 trainer, at cuDNN's default algorithms, on phase 8's seeded
+    batches.  Each step also compares the forward passes' decisions
+    (``decision_flips``) and each gradient array's relative L2 error.
+    Prints one ``STEP`` JSON line for each step past phase 8's gradient
+    limit and one ``SUMMARY`` line a mesh."""
+    from inaspeechsegmenter_tpu_torch import Segmenter, seg2csv
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+    from inaspeechsegmenter_tpu_torch.models.registry import load_patch_model
+    from inaspeechsegmenter_tpu_torch.models.synthetic import (
+        install_synthetic_models)
+    from inaspeechsegmenter_tpu_torch.parallel import make_2d_mesh
+    from inaspeechsegmenter_tpu_torch.train import Trainer, patch_dataset
+
+    models = install_synthetic_models(os.path.join(workdir, "models"),
+                                      seed=0, size="full")
+    wav = os.path.join(workdir, "mix600.wav")
+    write_wav(wav, to_int16(seeded_mix(600, seed=600,
+                                       silences=silences_every(600))), SR)
+    seg = Segmenter("smn", True, ffmpeg=None, device=dev, model_dir=models,
+                    allow_download=False)
+    annot = os.path.join(workdir, "mix600.csv")
+    seg2csv(seg(wav), annot)
+    x, y = patch_dataset([(wav, annot)], "smn", ffmpeg=None, device=dev)
+    n = ENGINE_TRAIN_STEPS * TRAIN_BATCH
+    order = np.random.default_rng(8).permutation(len(x))[:n]
+    batches = [(x[order[i:i + TRAIN_BATCH]], y[order[i:i + TRAIN_BATCH]])
+               for i in range(0, n, TRAIN_BATCH)]
+    model = load_patch_model("keras_speech_music_noise_cnn.hdf5", models)
+    devices = engine_devices(torch)
+    meshes = {"2x1": make_2d_mesh(2, 1, devices=devices[:2]),
+              "2x2": make_2d_mesh(2, 2, devices=(devices * 4)[:4])}
+    ckpt = os.path.join(workdir, "ckpt.npz")
+    log(f"[mesh-step] {repeats} repeats of {len(batches)} steps a mesh, "
+        f"cudnn.deterministic={torch.backends.cudnn.deterministic}, "
+        f"benchmark={torch.backends.cudnn.benchmark}")
+    for name, m in meshes.items():
+        tr = Trainer(model.spec, model.params, m, device=dev)
+        store_ref, store_mesh = {}, {}
+        steps = []
+        for r in range(repeats):
+            ref = Trainer(model.spec, model.params, device=dev)
+            for k, (xb, yb) in enumerate(batches):
+                ref.save_checkpoint(ckpt)
+                tr.restore_checkpoint(ckpt)
+                store_ref.clear()
+                store_mesh.clear()
+                handles = decision_hooks(torch, ref.model, store_ref)
+                for rep in tr.replicas:
+                    handles += decision_hooks(torch, rep, store_mesh)
+                lr_, lm = ref.train_step(xb, yb), tr.train_step(xb, yb)
+                for h in handles:
+                    h.remove()
+                flips = decision_flips(torch, store_ref, store_mesh)
+                g_ref = ref._gathered(lambda p: p.grad)
+                g_m = tr._gathered(lambda p: p.grad)
+                worst = {"max": (0.0, None), "l2": (0.0, None)}
+                for layer, arrays in g_ref.items():
+                    for i, (g, h) in enumerate(zip(arrays, g_m[layer])):
+                        if g is None:
+                            continue
+                        d = g - h
+                        err = {"max": float(d.abs().max())
+                               / (float(g.abs().max()) or 1.0),
+                               "l2": float(d.norm())
+                               / (float(g.norm()) or 1.0)}
+                        for key, v in err.items():
+                            if v > worst[key][0]:
+                                worst[key] = (v, f"{layer}[{i}]")
+                step = {"mesh": name, "repeat": r, "step": k,
+                        "loss_rel": abs(lm - lr_) / (abs(lr_) or 1.0),
+                        "grad_max": worst["max"][0],
+                        "grad_max_at": worst["max"][1],
+                        "grad_rel_l2": worst["l2"][0],
+                        "grad_rel_l2_at": worst["l2"][1],
+                        "flips": {k: v for k, v in flips.items() if v[0]}}
+                steps.append(step)
+                if step["grad_max"] > ENGINE_GRAD_ATOL:
+                    print("STEP " + json.dumps(step), flush=True)
+        over = [s for s in steps if s["grad_max"] > ENGINE_GRAD_ATOL]
+        flipped = [s for s in steps if s["flips"]]
+        clean = [s for s in steps if not s["flips"]]
+
+        def top(ss, key):
+            return max((s[key] for s in ss), default=None)
+
+        summary = {
+            "mesh": name, "repeats": repeats, "steps": len(steps),
+            "repeats_past_limit": len({s["repeat"] for s in over}),
+            "steps_past_limit": len(over),
+            "steps_past_limit_with_flips": sum(bool(s["flips"])
+                                               for s in over),
+            "steps_with_flips": len(flipped),
+            "grad_max_with_flips": top(flipped, "grad_max"),
+            "grad_max_without_flips": top(clean, "grad_max"),
+            "grad_rel_l2_with_flips": top(flipped, "grad_rel_l2"),
+            "grad_rel_l2_without_flips": top(clean, "grad_rel_l2"),
+            "loss_rel": top(steps, "loss_rel")}
+        print("SUMMARY " + json.dumps(summary), flush=True)
+
+
 def overlap_route(n):
     """(groups, chunks) the overlapped scorer uploads for ``n`` int16
     samples: the frontend's chunks, one more where the signal's last
@@ -2656,6 +2843,292 @@ def phase_overlap(torch, dev, vfs, files, wavs, models):
     return per
 
 
+# --------------------------------------------------------------------------
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PORT = "inaspeechsegmenter_tpu_torch"
+ENDURANCE_FILES = 16            # two-second WAVs: 8 to warm, then 8 more
+ENDURANCE_MEMORY_SLACK = 1 << 20    # bytes allocated may differ by 1 MiB
+PATH_KERNELS = ("sidekit_fe_kernel", "viterbi_kernel")   # trace names
+
+INSTALLED_RUNNER = r"""
+import time
+marks = [("interpreter", time.time())]
+import gc, json, os, runpy, sys
+import numpy as np
+import torch
+marks.append(("torch import", time.time()))
+import inaspeechsegmenter_tpu_torch as port
+from inaspeechsegmenter_tpu_torch import Segmenter
+from inaspeechsegmenter_tpu_torch.audio import native
+from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+marks.append(("port import", time.time()))
+
+cfg = json.loads(sys.argv[1])
+wrappers = {"sidekit_fe": fe_kernel.sidekit_features,
+            "viterbi": tv.viterbi_scan,
+            "viterbi_general": tv.viterbi_scan_general}
+
+
+def counts():
+    torch.cuda.synchronize()
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def reset():
+    for w in wrappers.values():
+        w.launches = 0
+
+
+out = {"package": port.__file__, "native_source": native.SOURCE}
+torch.cuda.init()
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+marks.append(("CUDA context", time.time()))
+seg = Segmenter("smn", True, ffmpeg=None, model_dir=cfg["models"],
+                allow_download=False)
+torch.cuda.synchronize()
+marks.append(("Segmenter", time.time()))
+reset()                                  # (d) the 10 min WAV, counted
+seg(cfg["mix600"])
+out["launches"] = counts()
+marks.append(("first 10 min file", time.time()))
+t = cfg["launched_at"]
+out["start_up"] = {}
+for name, at in marks:
+    out["start_up"][name], t = at - t, at
+reset()                                  # (e) 44.1 kHz, no ffmpeg
+out["resampled"] = seg(cfg["wav44"])
+out["resampled_launches"] = counts()
+out["native_library"] = native.load_library()._name
+rng = np.random.default_rng(0)           # (f) endurance
+wavs, csvs = [], []
+for i in range(cfg["n_files"]):
+    t = np.arange(2 * 16000) / 16000
+    sig = [rng.standard_normal(len(t)) * 0.1,
+           np.sin(2 * np.pi * 220.0 * (i + 1) * t) * 0.2,
+           np.zeros(len(t))][i % 3]
+    wavs.append(os.path.join(cfg["endurance"], f"f{i:02d}.wav"))
+    csvs.append(os.path.join(cfg["endurance"], f"f{i:02d}.csv"))
+    write_wav(wavs[-1], np.clip(np.rint(sig * 32768), -32768, 32767)
+              .astype(np.int16), 16000)
+half = cfg["n_files"] // 2
+memory = []
+for part in (slice(0, half), slice(half, None)):
+    n_ok = seg.batch_process(wavs[part], csvs[part])[1]
+    if n_ok != half:
+        raise RuntimeError(f"endurance: {n_ok} of {half} files segmented")
+    gc.collect()
+    torch.cuda.synchronize()
+    memory.append(torch.cuda.memory_allocated())
+out["memory_allocated"] = memory
+out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+out["verify"] = {}                       # (g) the acceptance kit
+for name, d in cfg["verify"].items():
+    os.environ["ISS_TPU_MODEL_DIR"] = d
+    report = os.path.join(cfg["endurance"], f"verify_{name}.json")
+    sys.argv = ["verify_weights", "--report-only", "--json", report]
+    try:
+        runpy.run_module("inaspeechsegmenter_tpu_torch.tools.verify_weights",
+                         run_name="__main__")
+        rc = 0
+    except SystemExit as exc:
+        rc = exc.code
+    with open(report) as fh:
+        out["verify"][name] = {"rc": rc, "report": json.load(fh)}
+print("INSTALLED " + json.dumps(out), flush=True)
+"""
+
+
+def install_port(target, wheels):
+    """Install the checkout into ``target``: build the wheel and install it
+    with ``--target``.  -> the wheel's name and the setuptools version."""
+    try:
+        import setuptools
+    except ImportError:
+        raise RuntimeError("check failed: no setuptools on this host, so "
+                           "the wheel cannot be built") from None
+    subprocess.run([sys.executable, "-m", "pip", "wheel", "--no-deps",
+                    "--no-build-isolation", "-q", "-w", wheels, ROOT],
+                   check=True, timeout=300)
+    (wheel,) = [os.path.join(wheels, n) for n in os.listdir(wheels)
+                if n.endswith(".whl")]
+    subprocess.run([sys.executable, "-m", "pip", "install", "-q",
+                    "--no-deps", "--no-index", "--target", target, wheel],
+                   check=True, timeout=300)
+    return (f"wheel ({os.path.basename(wheel)}, setuptools "
+            f"{setuptools.__version__})")
+
+
+def run_installed(cmd, env, cwd, what):
+    """Run ``cmd`` against the install -> (stdout, wall s); a non-zero exit
+    fails the smoke."""
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, cwd=cwd, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        log(r.stdout[-4000:])
+        log(r.stderr[-4000:])
+    check(r.returncode == 0, f"{what} exited {r.returncode}")
+    return r.stdout, wall
+
+
+def build_state(build):
+    """The build directory's files and their mtimes."""
+    return {n: os.stat(os.path.join(build, n)).st_mtime_ns
+            for n in sorted(os.listdir(build))}
+
+
+def trace_kernels(trace_dir):
+    """Names of the device kernels in a ``torch_trace`` file."""
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def phase_installed(torch, dev, workdir, files, wavs, models, resampled):
+    """Phase 10: the port installed from the checkout and driven from the
+    install, on the card.  -> the kernel launches of its 10 min file."""
+    t_phase = time.perf_counter()
+    base = os.path.join(workdir, "installed")
+    target, build, cwd, wheels, endurance = (
+        os.path.join(base, d) for d in ("site", "build", "cwd", "wheels",
+                                        "endurance"))
+    for d in (cwd, wheels, endurance):
+        os.makedirs(d)
+    # (a) install
+    t0 = time.perf_counter()
+    route = install_port(target, wheels)
+    log(f"[installed] route {route}: {time.perf_counter() - t0!r} s into "
+        f"{target}")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "ISS_AUDIO_LIB", "ISS_TRACE_DIR")}
+    env.update(PYTHONPATH=target, ISS_TORCH_BUILD_DIR=build,
+               ISS_TPU_MODEL_DIR=models)
+
+    # (b) prewarm from the install into an empty build directory
+    out, wall = run_installed(
+        [sys.executable, "-m", f"{PORT}.tools.prewarm"], env, cwd,
+        "prewarm")
+    for line in out.splitlines():
+        log(f"[installed] {line}")
+    package = out.split("[prewarm] package ", 1)[1].split("\n", 1)[0]
+    check(package.startswith(target + os.sep),
+          f"prewarm imported {package}, not the install")
+    cold = float(out.split("CUDA kernels built and loaded in ", 1)[1]
+                 .split(" s", 1)[0])
+    log(f"[installed] prewarm: cold kernel build {cold!r} s, wall {wall!r} "
+        f"s")
+    built = build_state(build)
+    check(any(n.startswith("libiss_torch_kernels_") for n in built)
+          and any(n.startswith("libissaudio_") for n in built),
+          f"prewarm left {sorted(built)}")
+
+    # (c) the console script on the 60 s and 10 min WAVs, plain (the
+    # first-request wall), then traced
+    script = os.path.join(target, "bin", "ina_speech_segmenter_torch")
+    names = list(files)
+    for name in ("mix60", "mix600"):
+        wav = wavs[names.index(name)]
+        trace = os.path.join(base, "trace_" + name)
+        walls, statuses = {}, {}
+        for run, run_env in (("plain", env),
+                             ("traced", {**env, "ISS_TRACE_DIR": trace})):
+            odir = os.path.join(base, f"out_{run}_{name}")
+            os.makedirs(odir)
+            out, walls[run] = run_installed(
+                [sys.executable, script, "-i", wav, "-o", odir, "-b",
+                 "none"], run_env, cwd, "ina_speech_segmenter_torch")
+            # "1/1 [(dst, 0, 'ok <s>')]"
+            statuses[run] = out.strip().splitlines()[-1]
+            with open(os.path.join(odir, name + ".csv"), "rb") as a, \
+                    open(os.path.join(workdir, "out", name + ".csv"),
+                         "rb") as b:
+                check(a.read() == b.read(), f"{name}: the installed console "
+                      f"script's csv ({run}) differs from phase 2's")
+        kernels = trace_kernels(trace)
+        found = {k: sorted(n for n in kernels if k in n)
+                 for k in PATH_KERNELS}
+        check(all(found.values()),
+              f"{name}: the trace lacks a path kernel: {found}")
+        check(build_state(build) == built,
+              f"{name}: the console script rebuilt: {build_state(build)}")
+        size = os.path.getsize(os.path.join(trace, "trace.json"))
+        log(f"[installed] ina_speech_segmenter_torch {name} "
+            f"({len(files[name]) / SR!r} s of audio): wall {walls['plain']!r}"
+            f" s plain, {walls['traced']!r} s with ISS_TRACE_DIR set (batch "
+            f"statuses {statuses}), csvs byte-equal to phase 2's, no "
+            f"rebuild, trace.json {size} B with kernels {found}")
+
+    # (d-g) one runner on the install: launches, resampler, endurance,
+    # the acceptance kit
+    cfg = {"models": models, "mix600": wavs[names.index("mix600")],
+           "wav44": os.path.join(workdir, "mix60_44k.wav"),
+           "n_files": ENDURANCE_FILES, "endurance": endurance,
+           "verify": {"hdf5": os.path.join(workdir, "hdf5_models"),
+                      "synthetic": models}}
+    cfg["launched_at"] = time.time()
+    out, wall = run_installed(
+        [sys.executable, "-c", INSTALLED_RUNNER, json.dumps(cfg)], env, cwd,
+        "the installed runner")
+    res = json.loads(out.split("INSTALLED ", 1)[1])
+    check(res["package"].startswith(target + os.sep),
+          f"the runner imported {res['package']}")
+    check(build_state(build) == built,
+          f"the runner rebuilt: {build_state(build)}")
+    launches = res["launches"]
+    log(f"[installed] runner wall {wall!r} s; its start-up, seconds from "
+        f"the mark before: {res['start_up']}; mix600 kernel launches "
+        f"{launches}")
+    check(launches == {"sidekit_fe": 1, "viterbi": 3, "viterbi_general": 0},
+          f"installed mix600 launches {launches}")
+    got = [tuple(x) for x in res["resampled"]]
+    check(res["native_source"] == os.path.join(target, PORT, "native",
+                                               "issaudio.cc")
+          and os.path.dirname(res["native_library"]) == build,
+          f"native library {res['native_library']} from "
+          f"{res['native_source']}")
+    check(got == resampled, "the installed resampled labels differ from "
+          "phase 6(f)'s")
+    check_segmentation_launches(res["resampled_launches"],
+                                "the installed resampled file")
+    log(f"[installed] 44.1 kHz WAV without ffmpeg: {len(got)} segments equal "
+        f"to phase 6(f)'s; native library "
+        f"{os.path.basename(res['native_library'])} from the package's "
+        f"source; launches {res['resampled_launches']}")
+    m1, m2 = res["memory_allocated"]
+    log(f"[installed] endurance, {ENDURANCE_FILES} two-second WAVs through "
+        f"one Segmenter: memory_allocated after the first "
+        f"{ENDURANCE_FILES // 2} {m1} B, after the next {m2} B (diff "
+        f"{m2 - m1} B); max_memory_allocated {res['max_memory_allocated']} B")
+    check(abs(m2 - m1) <= ENDURANCE_MEMORY_SLACK,
+          f"device memory grew {m2 - m1} B over the steady files")
+    for name, v in res["verify"].items():
+        rep = v["report"]
+        log(f"[installed] verify_weights --report-only over the {name} set: "
+            f"exit {v['rc']}, summary {rep['summary']}, models "
+            f"{rep['models']}")
+        check(v["rc"] == 0 and rep["ok"], f"verify_weights ({name}) failed")
+    hdf5 = res["verify"]["hdf5"]["report"]
+    passed = {r["name"] for r in hdf5["results"] if r["status"] == "PASS"}
+    check(all(any(n.startswith(m + ": forward") for n in passed)
+              for m in ("keras_speech_music_cnn.hdf5",
+                        "keras_speech_music_noise_cnn.hdf5",
+                        "keras_male_female_cnn.hdf5",
+                        "interspeech2023_all.hdf5",
+                        "interspeech2023_cvfr.hdf5"))
+          and "raw_81.pth: native npz checkpoint" in passed,
+          f"verify_weights did not pass every file: {sorted(passed)}")
+    synthetic = res["verify"]["synthetic"]["report"]["models"]
+    check(sorted(k for k, v in synthetic.items() if v == "synthetic") == sorted(
+        k for k in synthetic if k.endswith(".hdf5")),
+        f"synthetic stand-ins not reported as such: {synthetic}")
+    log(f"[phase 10] installed: {time.perf_counter() - t_phase!r} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -2680,6 +3153,11 @@ def main():
     # the port's own calls set their flags in scopes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if MESH_STEP_FLAG in sys.argv:
+        with tempfile.TemporaryDirectory() as workdir:
+            mesh_step_diagnosis(torch, dev, workdir, int(
+                sys.argv[sys.argv.index(MESH_STEP_FLAG) + 1]))
+        return 0
     kernels = [phase_features(torch, dev), phase_viterbi(torch, dev)]
     with tempfile.TemporaryDirectory() as workdir:
         seg, launches, files, wavs, models, per_file = phase_main(
@@ -2690,13 +3168,15 @@ def main():
                                        wavs)
         launches_real, per_ffmpeg_file = phase_real_inputs(
             torch, dev, workdir, seg, vfs, params, files, wavs, models)
-        general, per_ref = phase_reference(torch, dev, workdir, seg, vfs,
-                                           files, wavs, models, speech_rate)
+        general, per_ref, resampled = phase_reference(
+            torch, dev, workdir, seg, vfs, files, wavs, models, speech_rate)
         per_ref.update(phase_train_score_farm(torch, dev, workdir, seg,
                                               files, wavs, models))
         per_ref.update(phase_engine(torch, dev, workdir, seg, vfs, params,
                                     files, wavs, models, speech_rate))
         per_ref.update(phase_overlap(torch, dev, vfs, files, wavs, models))
+        per_ref["installed"] = phase_installed(torch, dev, workdir, files,
+                                               wavs, models, resampled)
     kernels.append(general)
     for k in kernels:
         name = k["name"]
@@ -2705,7 +3185,7 @@ def main():
         k["launches_per_file"] = {
             path: counts[name]
             for path, counts in {**earlier, **per_ref}.items()}
-        # the main-path runs of phases 2-9 (the kernels' comparisons with
+        # the main-path runs of phases 2-10 (the kernels' comparisons with
         # their plain versions excluded)
         k["launches"] = sum(c[name] for c in (
             launches, launches_vfs, per_online_file, launches_real,

@@ -5,16 +5,21 @@ decode, mono mixdown and the polyphase sinc resampler to 16 kHz, which
 ``audio/io.py`` uses for a WAV at another rate when there is no ffmpeg.
 The upload codec's ``pack_bits`` is not bound (the codec is not ported).
 
-The port builds its own library at first use, from the repository's
-``native/issaudio.cc``, with the host C++ compiler (``$CXX``, else
-``c++``, else ``g++``) and the Makefile's flags, into the git-ignored
-``build/native/`` beside the package (``$ISS_TORCH_BUILD_DIR`` moves it),
-as ``libissaudio_<hash>.so`` where the hash covers the source and the
-flags; a lock makes concurrent first users build once.  It never loads
-the JAX package's library nor runs ``native/Makefile``, whose target lies
-in the JAX package.  A failed build raises with the compiler's output;
-with no compiler (or no source) the library is unavailable and a WAV at
-another rate than 16 kHz raises, the reference's no-ffmpeg contract.
+The library is, in this order (the JAX package's): a prebuilt one named
+by ``$ISS_AUDIO_LIB`` (a path that is missing or fails to load passes to
+the next), then the port's own build.  The port builds the package's own
+copy of the source, ``inaspeechsegmenter_tpu_torch/native/issaudio.cc``
+(byte-equal to the repository's ``native/issaudio.cc``, so it ships in
+the wheel), at first use with the host C++ compiler (``$CXX``, else
+``c++``, else ``g++``) and the Makefile's flags, into
+``utils.cuda_build.default_build_dir("native")`` (``build/native`` in a
+checkout, the user cache in an install, ``$ISS_TORCH_BUILD_DIR`` when
+set), as ``libissaudio_<hash>.so`` where the hash covers the source and
+the flags; a lock makes concurrent first users build once.  It never
+loads the JAX package's library nor runs ``native/Makefile``.  A failed
+build raises with the compiler's output; with no compiler the library is
+unavailable and a WAV at another rate than 16 kHz raises, the
+reference's no-ffmpeg contract.
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import threading
 
 import numpy as np
 
+from ..utils.cuda_build import default_build_dir
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(PKG_DIR), "native", "issaudio.cc")
+SOURCE = os.path.join(PKG_DIR, "native", "issaudio.cc")
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _LOCK = threading.Lock()
@@ -38,10 +45,7 @@ _TRIED = False
 
 
 def build_dir():
-    """``$ISS_TORCH_BUILD_DIR``, else ``build/native`` beside the
-    package."""
-    return os.environ.get("ISS_TORCH_BUILD_DIR") or os.path.join(
-        os.path.dirname(PKG_DIR), "build", "native")
+    return default_build_dir("native")
 
 
 def find_cxx():
@@ -64,11 +68,9 @@ def library_path():
 def build():
     """Compile the library unless a build of the current source exists.
 
-    :return: its path, or None when there is no source or no compiler.
+    :return: its path, or None when there is no compiler.
     :raises RuntimeError: with the compiler's output when it fails.
     """
-    if not os.path.exists(SOURCE):
-        return None
     lib = library_path()
     if os.path.exists(lib):
         return lib
@@ -90,33 +92,44 @@ def build():
     return lib
 
 
+def _bind(lib):
+    lib.iss_wav_info.restype = ctypes.c_int64
+    lib.iss_wav_info.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)]
+    lib.iss_wav_decode_f32.restype = ctypes.c_int64
+    lib.iss_wav_decode_f32.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+    lib.iss_resample.restype = ctypes.c_int64
+    lib.iss_resample.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+    return lib
+
+
 def load_library():
-    """The loaded library (built first if needed), or None when it cannot
-    be built here (no compiler or no source)."""
+    """The loaded library: ``$ISS_AUDIO_LIB`` when it loads, else the
+    port's own build (built first if needed); None when neither exists
+    (no compiler)."""
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
     with _LOCK:
         if _TRIED:
             return _LIB
-        path = build()
-        if path is not None:
-            lib = ctypes.CDLL(path)
-            lib.iss_wav_info.restype = ctypes.c_int64
-            lib.iss_wav_info.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-                ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)]
-            lib.iss_wav_decode_f32.restype = ctypes.c_int64
-            lib.iss_wav_decode_f32.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
-            lib.iss_resample.restype = ctypes.c_int64
-            lib.iss_resample.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-                ctypes.c_int32, ctypes.c_int32,
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
-            _LIB = lib
+        env = os.environ.get("ISS_AUDIO_LIB")
+        if env and os.path.exists(env):
+            try:
+                _LIB = _bind(ctypes.CDLL(env))
+            except OSError:
+                pass
+        if _LIB is None:
+            path = build()
+            if path is not None:
+                _LIB = _bind(ctypes.CDLL(path))
         _TRIED = True
     return _LIB
 
@@ -162,8 +175,8 @@ def resample(sig: np.ndarray, sr_in: int, sr_out: int = 16000):
     """Polyphase sinc resample of a float32 mono signal."""
     lib = load_library()
     if lib is None:
-        raise RuntimeError("native audio library unavailable: no C++ "
-                           "compiler or no native/issaudio.cc")
+        raise RuntimeError("native audio library unavailable: no "
+                           "$ISS_AUDIO_LIB and no C++ compiler")
     sig = np.ascontiguousarray(sig, np.float32)
     cap = int(len(sig) * sr_out / sr_in) + 16
     out = np.empty(cap, np.float32)

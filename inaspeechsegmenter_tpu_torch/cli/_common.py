@@ -13,6 +13,14 @@ def resolve_ffmpeg(name):
     return name
 
 
+def exit_status(result):
+    """A batch's ``(total_s, n_ok, avg_s, lmsg)`` -> the process exit
+    status: 1 when a file's status is an error (2), else 0 (a skipped
+    file, 1, is no failure).  The console scripts ``sys.exit`` what
+    ``main`` returns."""
+    return 1 if any(m[1] == 2 for m in result[3]) else 0
+
+
 def parallel_mesh(device):
     """The ``--parallel`` mesh: every visible CUDA device for a CUDA
     ``--device`` (none visible raises), the one CPU slot for ``cpu``."""

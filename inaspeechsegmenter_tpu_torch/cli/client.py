@@ -13,11 +13,13 @@ batches split over them.
 from __future__ import annotations
 
 import argparse
+import sys
 
 from ._common import parallel_mesh, resolve_ffmpeg
 
 
 def main(argv=None):
+    """Work leases until the server's queue is empty -> exit status 0."""
     parser = argparse.ArgumentParser(
         description='Start a segmentation worker that pulls job leases.')
     parser.add_argument('uri', type=str,
@@ -60,9 +62,10 @@ def main(argv=None):
             from inaspeechsegmenter_tpu_torch.parallel import ParallelEngine
 
             worker = ParallelEngine(worker, parallel_mesh(args.device))
-    return client_work_loop(args.uri, worker, timeout=args.lease_timeout,
-                            reconnect=args.lease_reconnect)
+    client_work_loop(args.uri, worker, timeout=args.lease_timeout,
+                     reconnect=args.lease_reconnect)
+    return 0
 
 
 if __name__ == '__main__':
-    main()
+    sys.exit(main())

@@ -8,6 +8,9 @@ export format, -r energy ratio, --follow / --follow_idle — plus
 CPU).  ``-b`` defaults to ``ffmpeg``; ``-b none`` takes 16 kHz WAV input
 only.  ``--parallel`` runs ``parallel.ParallelEngine(seg).batch_process``
 over every visible CUDA device (with ``--device cpu``, one CPU slot).
+With ``$ISS_TRACE_DIR`` set, the run is profiled (``utils.timing.
+torch_trace``: host activity and the CUDA device's) into
+``$ISS_TRACE_DIR/trace.json``, as the JAX CLI traces into it.
 
     python -m inaspeechsegmenter_tpu_torch.cli.segment -i in.mp3 -o outdir \\
         --device cuda
@@ -18,11 +21,13 @@ over every visible CUDA device (with ``--device cpu``, one CPU slot).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import os
+import sys
 import warnings
 
-from ._common import parallel_mesh, resolve_ffmpeg
+from ._common import exit_status, parallel_mesh, resolve_ffmpeg
 
 description = (
     "Segment media files into speech/music(/noise) regions, optionally "
@@ -69,6 +74,8 @@ def build_parser():
 
 
 def main(argv=None):
+    """Run the command line ``argv`` (default ``sys.argv[1:]``) -> the
+    exit status: 0, or 1 when a file failed."""
     parser = build_parser()
     args = parser.parse_args(argv)
     ffmpeg = resolve_ffmpeg(args.ffmpeg_binary)
@@ -98,16 +105,25 @@ def main(argv=None):
     output_files = [
         os.path.join(odir, os.path.splitext(os.path.basename(e))[0] + '.'
                      + args.export_format) for e in input_files]
-    with warnings.catch_warnings():
+    trace_dir = os.environ.get('ISS_TRACE_DIR')
+    if trace_dir:
+        from inaspeechsegmenter_tpu_torch.utils.timing import torch_trace
+
+        trace_cm = torch_trace(trace_dir)
+    else:
+        trace_cm = contextlib.nullcontext()
+    with warnings.catch_warnings(), trace_cm:
         warnings.simplefilter('ignore')
         if args.follow:
-            return _follow(seg, input_files[0], output_files[0], args)
+            _follow(seg, input_files[0], output_files[0], args)
+            return 0
         if args.parallel:
             from inaspeechsegmenter_tpu_torch.parallel import ParallelEngine
 
             seg = ParallelEngine(seg, parallel_mesh(args.device))
-        return seg.batch_process(input_files, output_files, verbose=True,
-                                 output_format=args.export_format)
+        return exit_status(seg.batch_process(
+            input_files, output_files, verbose=True,
+            output_format=args.export_format))
 
 
 def _follow(seg, path, dst, args):
@@ -134,4 +150,4 @@ def _follow(seg, path, dst, args):
 
 
 if __name__ == '__main__':
-    main()
+    sys.exit(main())

@@ -22,9 +22,10 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import sys
 import warnings
 
-from ._common import parallel_mesh, resolve_ffmpeg
+from ._common import exit_status, parallel_mesh, resolve_ffmpeg
 
 description = (
     "Score voice femininity of media files: x-vector speaker embeddings "
@@ -72,6 +73,8 @@ def build_parser():
 
 
 def main(argv=None):
+    """Run the command line ``argv`` (default ``sys.argv[1:]``) -> the
+    exit status: 0, or 1 when a file failed."""
     parser = build_parser()
     args = parser.parse_args(argv)
     ffmpeg = resolve_ffmpeg(args.ffmpeg_binary)
@@ -112,10 +115,11 @@ def main(argv=None):
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
         if args.follow:
-            return _follow(scorer, input_files[0], output_files[0], args)
-        return scorer.batch_score(input_files, output_files, verbose=True,
-                                  skipifexist=args.skipifexist,
-                                  nbtry=args.nbtry)
+            _follow(scorer, input_files[0], output_files[0], args)
+            return 0
+        return exit_status(scorer.batch_score(
+            input_files, output_files, verbose=True,
+            skipifexist=args.skipifexist, nbtry=args.nbtry))
 
 
 def _follow(scorer, path, dst, args):
@@ -144,4 +148,4 @@ def _follow(scorer, path, dst, args):
 
 
 if __name__ == '__main__':
-    main()
+    sys.exit(main())

@@ -49,11 +49,25 @@ def source_hash():
     return h.hexdigest()[:16]
 
 
+def default_build_dir(name):
+    """Where the port builds ``name`` (``torch_kernels``, ``native``):
+    ``$ISS_TORCH_BUILD_DIR``; else, in a checkout (the package's parent
+    holds ``pyproject.toml``), its git-ignored ``build/<name>``; else, in
+    an install, the per-user cache
+    ``${XDG_CACHE_HOME:-~/.cache}/inaspeechsegmenter_tpu_torch/<name>``
+    (site-packages may be read-only)."""
+    env = os.environ.get("ISS_TORCH_BUILD_DIR")
+    if env:
+        return env
+    root = os.path.dirname(PKG_DIR)
+    if os.path.exists(os.path.join(root, "pyproject.toml")):
+        return os.path.join(root, "build", name)
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.expanduser("~/.cache")
+    return os.path.join(cache, "inaspeechsegmenter_tpu_torch", name)
+
+
 def build_dir():
-    """``$ISS_TORCH_BUILD_DIR``, else ``build/torch_kernels`` beside the
-    package (the checkout's git-ignored ``build/``)."""
-    return os.environ.get("ISS_TORCH_BUILD_DIR") or os.path.join(
-        os.path.dirname(PKG_DIR), "build", "torch_kernels")
+    return default_build_dir("torch_kernels")
 
 
 def find_nvcc():

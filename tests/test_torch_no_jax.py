@@ -9,7 +9,8 @@ or in ``chip_smoke.py``: neither on those paths nor on the reference's
 import paths (``io``, ``remote_utils``, ``viterbi_utils``,
 ``pyannote_viterbi``, ``features_vbx``, ``vbx_segmenter``, ``resnet``,
 ``export_funcs``, ``thread_returning``, ``sidekit_mfcc``) and the
-overlapped VFS scorer.
+overlapped VFS scorer, nor in the deployment tools (``tools.prewarm``,
+``tools.verify_weights``) or the installed console script.
 """
 
 import os
@@ -308,5 +309,53 @@ def test_reference_paths_and_overlapped_scorer_without_jax(tmp_path):
     r = subprocess.run([sys.executable, "-c", CODE_REFERENCE_PATHS],
                        cwd=tmp_path, env=env, capture_output=True, text=True,
                        timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO-JAX-OK" in r.stdout
+
+
+CODE_TOOLS = r"""
+import json
+import os
+import sys
+for m in ("jax", "jaxlib", "optax", "pandas", "h5py",
+          "inaspeechsegmenter_tpu"):
+    sys.modules[m] = None                # importing them now raises
+sys.path.insert(0, os.path.join(os.environ["PYTHONPATH"], "tests"))
+from torch_parity_helpers import write_spec_h5
+from inaspeechsegmenter_tpu_torch.models.synthetic import (
+    build_gender_mlp, build_patch_cnn, install_synthetic_models)
+from inaspeechsegmenter_tpu_torch.tools import prewarm, verify_weights
+
+os.makedirs("h5models")
+for stem, (spec, params) in {
+        "keras_speech_music_cnn": build_patch_cnn(21, 2, 0, "small"),
+        "keras_speech_music_noise_cnn": build_patch_cnn(21, 3, 1, "small"),
+        "keras_male_female_cnn": build_patch_cnn(24, 2, 2, "small"),
+        "interspeech2023_all": build_gender_mlp(seed=3),
+        "interspeech2023_cvfr": build_gender_mlp(seed=4)}.items():
+    write_spec_h5(f"h5models/{stem}.hdf5", spec, params)
+os.environ["ISS_TPU_MODEL_DIR"] = "h5models"
+assert verify_weights.main(["--device", "cpu", "--json", "r.json"]) == 0
+rep = json.load(open("r.json"))
+assert rep["summary"] == {"pass": 10, "fail": 0, "skip": 1}, rep["summary"]
+os.environ["ISS_TPU_MODEL_DIR"] = install_synthetic_models("models",
+                                                           size="small")
+assert prewarm.warm_engine("smn+gender", "cpu")
+bad = [m for m in ("jax", "jaxlib", "optax", "pandas", "h5py",
+                   "inaspeechsegmenter_tpu") if sys.modules.get(m)]
+assert not bad, bad
+print("NO-JAX-OK")
+"""
+
+
+def test_tools_run_without_jax(tmp_path):
+    """The acceptance kit's report over ``.hdf5`` files (read without
+    h5py) and the golden battery's SKIP, and prewarm's engine step, in a
+    process where importing jax, pandas, h5py or the JAX package fails."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in ("ISS_CNN_PRECISION", "ISS_XVEC_PRECISION"):
+        env.pop(name, None)
+    r = subprocess.run([sys.executable, "-c", CODE_TOOLS], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NO-JAX-OK" in r.stdout

@@ -291,9 +291,8 @@ def test_cli_writes_csv(port_vfs, synthetic_model_dir, xparams, mix_wav,
         xvector_net=ResNetXVector(*TINY), xvector_params=xparams))
     out = tmp_path / "out"
     out.mkdir()
-    _, n_ok, _, _ = cli.main(["-i", silence_wav, mix_wav[0], "-o", str(out),
-                              "-c", "vfp", "-b", "none", "--device", "cpu"])
-    assert n_ok == 2
+    assert cli.main(["-i", silence_wav, mix_wav[0], "-o", str(out),
+                     "-c", "vfp", "-b", "none", "--device", "cpu"]) == 0
     assert (out / "silence2sec.csv").read_text().splitlines()[1] == "\t0.0\t0"
     score, dur, n = port_vfs(mix_wav[0])
     assert (out / "mix20.csv").read_text().splitlines()[1] == (
