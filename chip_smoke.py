@@ -145,8 +145,14 @@ Phases, each fatal on failure (non-zero exit, no final line):
    and the free-running losses against the 1 x 1 trainer's (printed:
    Adam amplifies float reassociation from step to step); then 10 steps
    each from the 1 x 1 trainer's state (its checkpoint restored on the
-   mesh before every step): losses within 1e-5 relative and summed
-   gradients within 1e-4 of each array's largest magnitude; (e) the
+   mesh before every step), each step classified by the ReLU and max-pool
+   decisions of its two forwards (``mesh_step``): a step without a
+   flipped decision passes with its loss within 1e-5 relative and each
+   summed gradient within 1e-4 of the array's largest magnitude, a step
+   with flips only when every flip is a tie (gap under 1e-6), each
+   array's relative L2 error is at most 1e-3 and the loss is within
+   1e-5; the count of flipped steps and their worst values are printed
+   (``--mesh-step-repeats N`` runs this comparison N times a mesh); (e) the
    features kernel (10 min int16 signal) and the K = 3 Viterbi (T =
    180,000) launched at once from the two slots' threads on their own
    streams, each held against its plain version (phase 1's tolerances;
@@ -195,17 +201,37 @@ Phases, each fatal on failure (non-zero exit, no final line):
    ``max_memory_allocated`` printed) and ``tools.verify_weights
    --report-only`` over phase 5's ``.hdf5`` set with the x-vector npz
    (exit 0, every file's forward PASS) and over phase 2's synthetic set
-   (each stand-in reported as synthetic).
+   (each stand-in reported as synthetic);
+11. the upload codec and the frontend choice: (a) both decode kernels
+   (``csrc/codec.cu``) bit-equal to their plain versions and to the
+   source on the 10 min mix's five upload groups, the groups of an
+   elide-route signal (full-scale noise with 4 s of digital silence in
+   each 3-chunk group), one block at each width 0..16 and order, an
+   all-zero group and 20 fuzzed signals, each at its ``pack_best`` route
+   and both forced; kernel and plain ms at a 3-chunk group and the bound;
+   (b) with ``ISS_UPLOAD_CODEC=1``: ``batch_process`` of the 60 s, 10 min
+   and elide WAVs, csvs byte-equal to the codec-off run; each file once
+   more, counted: bytes shipped equal to ``group_shipped_bytes`` (ratio
+   printed), decode launches as ``pack_best``'s route, host encode ms a
+   group; warm walls codec on and off in turns (the ``auto`` decision);
+   ``vfs(mix60)`` tuple, VBx features and x-vectors equal to the codec-off
+   run; the ``OnlineSegmenter``'s finalize over the 10 min mix equal to
+   its codec-off finalize (and to ``segment_signal`` on >= 99.9% of the
+   frames); (c) ``ISS_FRONTEND=host`` on the 60 s and 10 min WAVs (frames
+   differing from the kernel frontend's, at most 0.1%), ``vfs(mix60)``
+   with the host frontend, the link probe's MB/s and what ``auto`` takes
+   on this host.
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-10, launches per file for
+summed over the main-path runs of phases 2-11, launches per file for
 segmentation, VFS, the online segmenter, the ffmpeg decode, each run
 of phase 6, phase 7's train and farm paths, phase 8's engine batch,
-sharded file and mesh VFS runs, phase 9's runs of each schedule and
-phase 10's installed 10 min file, ``bound_ms``: the larger of the
-bytes over 3.35 TB/s and the operations over 67 TFLOP/s fp32) and the
-card's name and power limit; the last line is the JSON result.  Every time
-is on the card that line names.  Imports nothing of JAX.
+sharded file and mesh VFS runs, phase 9's runs of each schedule,
+phase 10's installed 10 min file and phase 11's codec runs,
+``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
+over 67 TFLOP/s fp32) and the card's name and power limit; the last line
+is the JSON result.  Every time is on the card that line names.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -357,9 +383,10 @@ def phase_features(torch, dev):
     # the streaming and online path's launch: one group of chunks
     arr = arrays[(FEATURE_SECONDS[-1], "int16")]
     fe = fe_kernel.KernelSidekitFrontend(dev)
-    raw = arr[:(fe_kernel.GROUP_CHUNKS * sidekit.CHUNK + 2) * sidekit.HOP]
+    group = fe_kernel.upload_chunks()
+    raw = arr[:(group * sidekit.CHUNK + 2) * sidekit.HOP]
     err, _, _ = compare(torch.from_numpy(raw).to(dev),
-                        f"group of {fe_kernel.GROUP_CHUNKS} chunks, int16")
+                        f"group of {group} chunks, int16")
     worst = max(worst, err)
     chunks, t = fe.mspec_loge_chunks(arr)
     whole_m, whole_l, _ = fe.mspec_loge(arr)
@@ -529,36 +556,65 @@ def warm_batch_walls(batch, wavs, outs, tag):
 
 
 SEGMENTATION_KERNELS = ("sidekit_fe", "viterbi")   # K <= 3 decodes only
+CODEC_KERNELS = ("unpack_bits", "unpack_zero_elide")  # where the codec is on
+
+
+def kernel_wrappers():
+    """Every kernel wrapper, by kernel name."""
+    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+    from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
+
+    return {"sidekit_fe": fe_kernel.sidekit_features,
+            "viterbi": tv.viterbi_scan,
+            "viterbi_general": tv.viterbi_scan_general,
+            "unpack_bits": codec.unpack_bits,
+            "unpack_zero_elide": codec.unpack_zero_elide}
 
 
 def kernel_counts():
     """Every kernel wrapper's launch count."""
-    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
-
-    return {"sidekit_fe": fe_kernel.sidekit_features.launches,
-            "viterbi": tv.viterbi_scan.launches,
-            "viterbi_general": tv.viterbi_scan_general.launches}
+    return {k: w.launches for k, w in kernel_wrappers().items()}
 
 
 def reset_kernel_counts():
-    from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+    for w in kernel_wrappers().values():
+        w.launches = 0
 
-    fe_kernel.sidekit_features.launches = 0
-    tv.viterbi_scan.launches = 0
-    tv.viterbi_scan_general.launches = 0
+
+def codec_on():
+    """Whether the card's int16 uploads take the codec in this process
+    (``ISS_UPLOAD_CODEC``)."""
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import (
+        upload_codec_enabled)
+
+    return upload_codec_enabled()
+
+
+def without_codec(counts):
+    """The counts of the kernels whose launches do not depend on the
+    upload codec."""
+    return {k: v for k, v in counts.items() if k not in CODEC_KERNELS}
+
+
+def check_codec_launches(counts, what):
+    """With the codec off, no decode kernel launches; with it on, the
+    route depends on the data (phase 11 checks it against pack_best)."""
+    if not codec_on():
+        for name in CODEC_KERNELS:
+            check(counts[name] == 0,
+                  f"{what} launched {name} with the codec off")
 
 
 def check_segmentation_launches(counts, what):
     """A segmentation or VFS run launches the features and K <= 3 Viterbi
     kernels, and never the general-K one (its decodes have 2 or 3
-    states)."""
-    for name, n in counts.items():
+    states); the decode kernels as ``check_codec_launches`` says."""
+    for name, n in without_codec(counts).items():
         if name in SEGMENTATION_KERNELS:
             check(n > 0, f"{what} never launched the {name} kernel")
         else:
             check(n == 0, f"{what} launched the {name} kernel {n} times")
+    check_codec_launches(counts, what)
 
 
 def phase_main(torch, dev, workdir):
@@ -1854,7 +1910,8 @@ def phase_dnn_stage(torch, dev, seg, files, models):
         f"(smn {lv_c == lv_p}), {n_diff} of {n20} frames differ; walls cuda "
         f"{w_c!r} s, cpu {w_p!r} s; kernel launches {launches}")
     check(n_diff <= 0.001 * n20, "DnnSegmenter cuda and cpu differ on >0.1%")
-    check(launches == {"sidekit_fe": 0, "viterbi": 2, "viterbi_general": 0},
+    check(launches == {"sidekit_fe": 0, "viterbi": 2, "viterbi_general": 0,
+                       "unpack_bits": 0, "unpack_zero_elide": 0},
           "the two stages did not launch one K <= 3 Viterbi each")
     return launches
 
@@ -2300,9 +2357,10 @@ def phase_engine(torch, dev, workdir, seg, vfs, params, files, wavs, models,
     check(n_ok == len(wavs), f"engine statuses {lmsg}")
     # the routing: a corpus runs every file per-file (a file alone in its
     # bucket too): one features launch and three decodes a file
-    check(per["engine_batch"] == {"sidekit_fe": 3, "viterbi": 9,
-                                  "viterbi_general": 0},
+    check(without_codec(per["engine_batch"]) == {
+        "sidekit_fe": 3, "viterbi": 9, "viterbi_general": 0},
           f"engine batch launches {per['engine_batch']}")
+    check_codec_launches(per["engine_batch"], "the engine batch")
     for w, o in zip(wavs, outs):
         ref = os.path.join(workdir, "out", os.path.basename(w)[:-4] + ".csv")
         with open(o, "rb") as a, open(ref, "rb") as b:
@@ -2320,9 +2378,10 @@ def phase_engine(torch, dev, workdir, seg, vfs, params, files, wavs, models,
     reset_kernel_counts()
     got = engine(wav)
     per["sharded"] = kernel_counts()
-    check(per["sharded"] == {"sidekit_fe": 1, "viterbi": 3,
-                             "viterbi_general": 0},
+    check(without_codec(per["sharded"]) == {"sidekit_fe": 1, "viterbi": 3,
+                                            "viterbi_general": 0},
           f"sharded launches {per['sharded']}")
+    check_codec_launches(per["sharded"], "the sharded file")
     a, b = frame_labels(got), frame_labels(seg(wav))
     check(a.shape == b.shape, "sharded and fused label counts differ")
     n_diff = int((a != b).sum())
@@ -2405,32 +2464,25 @@ def phase_engine(torch, dev, workdir, seg, vfs, params, files, wavs, models,
     # the same step: before each step the mesh trainer restores the 1x1
     # trainer's checkpoint (gathered leaves, split again on restore), so
     # each of the steps starts from one state; loss and summed gradient
-    # of every step against the 1x1 trainer's
+    # of every step against the 1x1 trainer's, each step classified by
+    # the ReLU / max-pool decisions its two forwards took (mesh_step)
     ckpt = os.path.join(workdir, "engine_ckpt.npz")
     for name in ("2x1", "2x2"):
         ref = Trainer(model.spec, model.params, device=dev)
         tr = trainers[name]
-        worst_loss = worst_grad = 0.0
-        for xb, yb in batches:
-            ref.save_checkpoint(ckpt)
-            tr.restore_checkpoint(ckpt)
-            lr_, lm = ref.train_step(xb, yb), tr.train_step(xb, yb)
-            worst_loss = max(worst_loss, abs(lm - lr_) / (abs(lr_) or 1.0))
-            g_ref = ref._gathered(lambda p: p.grad)
-            g_m = tr._gathered(lambda p: p.grad)
-            for k, arrays in g_ref.items():
-                for g, h in zip(arrays, g_m[k]):
-                    if g is not None:
-                        scale = float(g.abs().max()) or 1.0
-                        worst_grad = max(worst_grad,
-                                         float((g - h).abs().max()) / scale)
+        steps = [mesh_step(torch, ref, tr, xb, yb, ckpt)
+                 for xb, yb in batches]
+        summary = mesh_step_summary(name, steps)
         log(f"[engine] (d) {name} from the 1x1 state at each of "
-            f"{len(batches)} steps: max rel loss diff {worst_loss!r} (rtol "
-            f"{ENGINE_LOSS_RTOL}), max gradient diff {worst_grad!r} of each "
-            f"array's largest magnitude (atol {ENGINE_GRAD_ATOL})")
-        check(worst_loss <= ENGINE_LOSS_RTOL
-              and worst_grad <= ENGINE_GRAD_ATOL,
-              f"the {name} step differs from the one-slot step")
+            f"{len(batches)} steps: {json.dumps(summary)} (steps without "
+            f"a flipped decision: loss rtol {ENGINE_LOSS_RTOL}, gradient "
+            f"atol {ENGINE_GRAD_ATOL} of each array's largest magnitude; "
+            f"with flips: every flip a tie under {FLIP_TIE_GAP}, each "
+            f"array's relative L2 under {ENGINE_GRAD_REL_L2}, loss rtol "
+            f"{ENGINE_LOSS_RTOL})")
+        bad = [s for s in steps if not s["ok"]]
+        check(not bad, f"the {name} step differs from the one-slot step: "
+              f"{json.dumps(bad)}")
 
     # (e) the kernels on the slots' streams
     slot_kernels(torch, devices)
@@ -2500,14 +2552,93 @@ def decision_flips(torch, ref, mesh):
     return out
 
 
+FLIP_TIE_GAP = 1e-6          # a flipped decision this close is a tie
+ENGINE_GRAD_REL_L2 = 1e-3    # each array's relative L2 error, a step with
+                             # flips (measured: 7.6e-5 at a tie's flip,
+                             # 2.2e-6 at most without one)
+
+
+def mesh_step(torch, ref, tr, xb, yb, ckpt):
+    """One step of the mesh trainer ``tr`` and of the one-slot ``ref``
+    from ``ref``'s state, under ``decision_hooks`` -> a dict: the loss's
+    relative error, each gradient array's worst max-abs error over its
+    largest magnitude and worst relative L2 error (and where), the flipped
+    decisions, and ``ok``: a step without a flipped decision passes on the
+    loss and max-abs limits; a step with flips passes only when every flip
+    is a tie (gap under ``FLIP_TIE_GAP``), every array's relative L2 error
+    is at most ``ENGINE_GRAD_REL_L2`` and the loss is within its limit."""
+    store_ref, store_mesh = {}, {}
+    ref.save_checkpoint(ckpt)
+    tr.restore_checkpoint(ckpt)
+    handles = decision_hooks(torch, ref.model, store_ref)
+    for rep in tr.replicas:
+        handles += decision_hooks(torch, rep, store_mesh)
+    try:
+        lr_, lm = ref.train_step(xb, yb), tr.train_step(xb, yb)
+    finally:
+        for h in handles:
+            h.remove()
+    flips = {k: v for k, v in decision_flips(torch, store_ref,
+                                             store_mesh).items() if v[0]}
+    g_ref = ref._gathered(lambda p: p.grad)
+    g_m = tr._gathered(lambda p: p.grad)
+    worst = {"max": (0.0, None), "l2": (0.0, None)}
+    for layer, arrays in g_ref.items():
+        for i, (g, h) in enumerate(zip(arrays, g_m[layer])):
+            if g is None:
+                continue
+            d = g - h
+            err = {"max": float(d.abs().max()) / (float(g.abs().max())
+                                                  or 1.0),
+                   "l2": float(d.norm()) / (float(g.norm()) or 1.0)}
+            for key, v in err.items():
+                if v > worst[key][0]:
+                    worst[key] = (v, f"{layer}[{i}]")
+    loss_rel = abs(lm - lr_) / (abs(lr_) or 1.0)
+    if flips:
+        ok = (all(gap < FLIP_TIE_GAP for _, gap in flips.values())
+              and worst["l2"][0] <= ENGINE_GRAD_REL_L2)
+    else:
+        ok = worst["max"][0] <= ENGINE_GRAD_ATOL
+    return {"loss_rel": loss_rel, "grad_max": worst["max"][0],
+            "grad_max_at": worst["max"][1], "grad_rel_l2": worst["l2"][0],
+            "grad_rel_l2_at": worst["l2"][1], "flips": flips,
+            "ok": ok and loss_rel <= ENGINE_LOSS_RTOL}
+
+
+def mesh_step_summary(name, steps):
+    """Counts and worst values of ``mesh_step`` results, with and without
+    flipped decisions."""
+    flipped = [s for s in steps if s["flips"]]
+    clean = [s for s in steps if not s["flips"]]
+
+    def top(ss, key):
+        return max((s[key] for s in ss), default=None)
+
+    return {
+        "mesh": name, "steps": len(steps),
+        "steps_failed": sum(not s["ok"] for s in steps),
+        "steps_past_max_abs_limit": sum(s["grad_max"] > ENGINE_GRAD_ATOL
+                                        for s in steps),
+        "steps_with_flips": len(flipped),
+        "flips": sum(n for s in flipped for n, _ in s["flips"].values()),
+        "flip_gap_max": max((g for s in flipped
+                             for _, g in s["flips"].values()), default=None),
+        "grad_max_with_flips": top(flipped, "grad_max"),
+        "grad_max_without_flips": top(clean, "grad_max"),
+        "grad_rel_l2_with_flips": top(flipped, "grad_rel_l2"),
+        "grad_rel_l2_without_flips": top(clean, "grad_rel_l2"),
+        "loss_rel": top(steps, "loss_rel")}
+
+
 def mesh_step_diagnosis(torch, dev, workdir, repeats):
     """``--mesh-step-repeats N``: phase 8(d)'s same-state comparison of the
     2x1 and 2x2 trainers with the 1x1 trainer, ``N`` times each from a
     fresh 1x1 trainer, at cuDNN's default algorithms, on phase 8's seeded
-    batches.  Each step also compares the forward passes' decisions
-    (``decision_flips``) and each gradient array's relative L2 error.
-    Prints one ``STEP`` JSON line for each step past phase 8's gradient
-    limit and one ``SUMMARY`` line a mesh."""
+    batches, each step classified as phase 8(d) classifies it
+    (``mesh_step``).  Prints one ``STEP`` JSON line for each step past
+    the max-abs gradient limit or with a flipped decision, and one
+    ``SUMMARY`` line a mesh; fails if a step fails phase 8(d)'s check."""
     from inaspeechsegmenter_tpu_torch import Segmenter, seg2csv
     from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
     from inaspeechsegmenter_tpu_torch.models.registry import load_patch_model
@@ -2538,83 +2669,39 @@ def mesh_step_diagnosis(torch, dev, workdir, repeats):
     log(f"[mesh-step] {repeats} repeats of {len(batches)} steps a mesh, "
         f"cudnn.deterministic={torch.backends.cudnn.deterministic}, "
         f"benchmark={torch.backends.cudnn.benchmark}")
+    failed = []
     for name, m in meshes.items():
         tr = Trainer(model.spec, model.params, m, device=dev)
-        store_ref, store_mesh = {}, {}
         steps = []
         for r in range(repeats):
             ref = Trainer(model.spec, model.params, device=dev)
             for k, (xb, yb) in enumerate(batches):
-                ref.save_checkpoint(ckpt)
-                tr.restore_checkpoint(ckpt)
-                store_ref.clear()
-                store_mesh.clear()
-                handles = decision_hooks(torch, ref.model, store_ref)
-                for rep in tr.replicas:
-                    handles += decision_hooks(torch, rep, store_mesh)
-                lr_, lm = ref.train_step(xb, yb), tr.train_step(xb, yb)
-                for h in handles:
-                    h.remove()
-                flips = decision_flips(torch, store_ref, store_mesh)
-                g_ref = ref._gathered(lambda p: p.grad)
-                g_m = tr._gathered(lambda p: p.grad)
-                worst = {"max": (0.0, None), "l2": (0.0, None)}
-                for layer, arrays in g_ref.items():
-                    for i, (g, h) in enumerate(zip(arrays, g_m[layer])):
-                        if g is None:
-                            continue
-                        d = g - h
-                        err = {"max": float(d.abs().max())
-                               / (float(g.abs().max()) or 1.0),
-                               "l2": float(d.norm())
-                               / (float(g.norm()) or 1.0)}
-                        for key, v in err.items():
-                            if v > worst[key][0]:
-                                worst[key] = (v, f"{layer}[{i}]")
                 step = {"mesh": name, "repeat": r, "step": k,
-                        "loss_rel": abs(lm - lr_) / (abs(lr_) or 1.0),
-                        "grad_max": worst["max"][0],
-                        "grad_max_at": worst["max"][1],
-                        "grad_rel_l2": worst["l2"][0],
-                        "grad_rel_l2_at": worst["l2"][1],
-                        "flips": {k: v for k, v in flips.items() if v[0]}}
+                        **mesh_step(torch, ref, tr, xb, yb, ckpt)}
                 steps.append(step)
-                if step["grad_max"] > ENGINE_GRAD_ATOL:
+                if step["grad_max"] > ENGINE_GRAD_ATOL or step["flips"]:
                     print("STEP " + json.dumps(step), flush=True)
-        over = [s for s in steps if s["grad_max"] > ENGINE_GRAD_ATOL]
-        flipped = [s for s in steps if s["flips"]]
-        clean = [s for s in steps if not s["flips"]]
-
-        def top(ss, key):
-            return max((s[key] for s in ss), default=None)
-
-        summary = {
-            "mesh": name, "repeats": repeats, "steps": len(steps),
-            "repeats_past_limit": len({s["repeat"] for s in over}),
-            "steps_past_limit": len(over),
-            "steps_past_limit_with_flips": sum(bool(s["flips"])
-                                               for s in over),
-            "steps_with_flips": len(flipped),
-            "grad_max_with_flips": top(flipped, "grad_max"),
-            "grad_max_without_flips": top(clean, "grad_max"),
-            "grad_rel_l2_with_flips": top(flipped, "grad_rel_l2"),
-            "grad_rel_l2_without_flips": top(clean, "grad_rel_l2"),
-            "loss_rel": top(steps, "loss_rel")}
+        summary = mesh_step_summary(name, steps)
+        summary["repeats"] = repeats
+        summary["repeats_past_max_abs_limit"] = len(
+            {s["repeat"] for s in steps if s["grad_max"] > ENGINE_GRAD_ATOL})
         print("SUMMARY " + json.dumps(summary), flush=True)
+        failed += [s for s in steps if not s["ok"]]
+    check(not failed, f"{len(failed)} steps fail phase 8(d)'s check")
 
 
 def overlap_route(n):
     """(groups, chunks) the overlapped scorer uploads for ``n`` int16
     samples: the frontend's chunks, one more where the signal's last
     samples fall past them (the shared PCM must cover the signal)."""
-    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import GROUP_CHUNKS
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import upload_chunks
     from inaspeechsegmenter_tpu_torch.dsp.sidekit import (CHUNK, HOP,
                                                           frame_count)
 
     chunks = max(1, -(-frame_count(n) // CHUNK))
     if n > (chunks * CHUNK + 2) * HOP:
         chunks += 1
-    return -(-chunks // GROUP_CHUNKS), chunks
+    return -(-chunks // upload_chunks()), chunks
 
 
 def busy_share(torch, fn):
@@ -2729,14 +2816,17 @@ def phase_overlap(torch, dev, vfs, files, wavs, models):
         per[f"vfs_overlapped_{name}"] = got = kernel_counts()
         want = {"sidekit_fe": groups, "viterbi": 2 * (chunks - 1) + 2,
                 "viterbi_general": 0}
-        check(got == want, f"{name}: overlapped launches {got}, the route "
-              f"gives {want}")
+        check(without_codec(got) == want, f"{name}: overlapped launches "
+              f"{got}, the route gives {want}")
+        check_codec_launches(got, f"{name}: overlapped")
         reset_kernel_counts()
         serial(sig, name)
         torch.cuda.synchronize()
         per[f"vfs_serial_{name}"] = got_s = kernel_counts()
-        check(got_s == {"sidekit_fe": 1, "viterbi": 2, "viterbi_general": 0},
+        check(without_codec(got_s) == {"sidekit_fe": 1, "viterbi": 2,
+                                       "viterbi_general": 0},
               f"{name}: serial launches {got_s}")
+        check_codec_launches(got_s, f"{name}: serial")
         log(f"[overlap] {name} ({len(sig) / SR!r} s, {chunks} chunks in "
             f"{groups} groups): result {results.pop()} equal on both "
             f"schedules; warm walls in turns (s) {walls}; medians serial "
@@ -2862,13 +2952,15 @@ from inaspeechsegmenter_tpu_torch import Segmenter
 from inaspeechsegmenter_tpu_torch.audio import native
 from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
 from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
-from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
 marks.append(("port import", time.time()))
 
 cfg = json.loads(sys.argv[1])
 wrappers = {"sidekit_fe": fe_kernel.sidekit_features,
             "viterbi": tv.viterbi_scan,
-            "viterbi_general": tv.viterbi_scan_general}
+            "viterbi_general": tv.viterbi_scan_general,
+            "unpack_bits": codec.unpack_bits,
+            "unpack_zero_elide": codec.unpack_zero_elide}
 
 
 def counts():
@@ -3082,8 +3174,10 @@ def phase_installed(torch, dev, workdir, files, wavs, models, resampled):
     log(f"[installed] runner wall {wall!r} s; its start-up, seconds from "
         f"the mark before: {res['start_up']}; mix600 kernel launches "
         f"{launches}")
-    check(launches == {"sidekit_fe": 1, "viterbi": 3, "viterbi_general": 0},
+    check(without_codec(launches) == {"sidekit_fe": 1, "viterbi": 3,
+                                      "viterbi_general": 0},
           f"installed mix600 launches {launches}")
+    check_codec_launches(launches, "the installed mix600 run")
     got = [tuple(x) for x in res["resampled"]]
     check(res["native_source"] == os.path.join(target, PORT, "native",
                                                "issaudio.cc")
@@ -3127,6 +3221,377 @@ def phase_installed(torch, dev, workdir, files, wavs, models, resampled):
         f"synthetic stand-ins not reported as such: {synthetic}")
     log(f"[phase 10] installed: {time.perf_counter() - t_phase!r} s")
     return launches
+
+
+# --------------------------------------------------------------------------
+CODEC_TURNS = ("off", "on", "on", "off", "off", "on")   # 3 pairs in turns
+CODEC_WALL_MARGIN = 0.02     # the codec's wall worse than this: raw in auto
+ELIDE_GROUPS = 2             # 3-chunk groups of the elide-route signal
+ELIDE_SILENCE_BLOCKS = 200   # 4 s of digital silence in each group
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set for the block, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def upload_groups(sig):
+    """The whole-file upload's group slices of an int16 signal: zero-padded
+    to whole chunks plus the 2*HOP lookahead, ``ISS_UPLOAD_CHUNKS`` chunks
+    a group, consecutive slices overlapping by 2*HOP (the JAX package's
+    grouping, which ``group_shipped_bytes`` counts)."""
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import upload_chunks
+    from inaspeechsegmenter_tpu_torch.dsp.sidekit import (CHUNK, HOP,
+                                                          frame_count)
+
+    n_chunks = max(1, -(-max(frame_count(len(sig)), 1) // CHUNK))
+    need = (n_chunks * CHUNK + 2) * HOP
+    padded = np.pad(sig[:need], (0, max(0, need - len(sig))))
+    group = upload_chunks()
+    return [padded[g * CHUNK * HOP:(min(g + group, n_chunks) * CHUNK + 2)
+                   * HOP] for g in range(0, n_chunks, group)]
+
+
+def codec_route(sig):
+    """Decode launches the codec's upload of ``sig`` takes, from
+    ``pack_best`` on each group: {"unpack_bits": n, "unpack_zero_elide":
+    n}."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    kinds = [(codec.pack_best(g) or (None,))[0] for g in upload_groups(sig)]
+    return {"unpack_bits": kinds.count("bits"),
+            "unpack_zero_elide": kinds.count("elide")}
+
+
+def elide_mix(seed=1212):
+    """Full-scale seeded int16 noise of ``ELIDE_GROUPS`` groups of 3 chunks
+    with ``ELIDE_SILENCE_BLOCKS`` blocks of digital silence in each:
+    bit-packing saves under 5% and declines, elision saves a page."""
+    from inaspeechsegmenter_tpu_torch.dsp.sidekit import CHUNK, HOP
+
+    rng = np.random.default_rng(seed)
+    n = (ELIDE_GROUPS * 3 * CHUNK + 2) * HOP
+    sig = rng.integers(-32768, 32768, n).astype(np.int16)
+    for g in range(ELIDE_GROUPS):
+        a = g * 3 * CHUNK * HOP + 30 * SR
+        sig[a:a + ELIDE_SILENCE_BLOCKS * 320] = 0
+    return sig
+
+
+def codec_every_width(seed=12):
+    """One block at each width 0..16 under each predictor order, four
+    times over (past one pool page)."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for order in range(3):
+        for w in range(17):
+            hi = (1 << w) // 2 if w else 0
+            r = rng.integers(-hi, hi, 318) if w else np.zeros(318, np.int64)
+            if order == 0:
+                x = np.r_[0, 0, r]
+            else:
+                x = np.zeros(320, np.int64)
+                x[0], x[1] = 3, 5
+                for n in range(2, 320):
+                    pred = x[n - 1] if order == 1 else 2 * x[n - 1] - x[n - 2]
+                    x[n] = pred + r[n - 2]
+            blocks.append(np.clip(x, -32768, 32767).astype(np.int16))
+    return np.concatenate(blocks * 4)
+
+
+def codec_fuzz(seed, nb=200):
+    """Random per-block content classes: silence, DC, tones, noise at
+    random scales, full-scale noise, ramps."""
+    rng = np.random.default_rng(seed)
+    blocks = np.zeros((nb, 320), np.int16)
+    for i, k in enumerate(rng.integers(0, 6, nb)):
+        if k == 1:
+            blocks[i] = rng.integers(-32768, 32768)
+        elif k == 2:
+            blocks[i] = (np.sin(2 * np.pi * rng.uniform(10, 8000) / SR
+                                * np.arange(320))
+                         * int(rng.integers(1, 32767))).astype(np.int16)
+        elif k == 3:
+            blocks[i] = np.clip(rng.standard_normal(320)
+                                * float(rng.uniform(0.5, 20000)),
+                                -32768, 32767).astype(np.int16)
+        elif k == 4:
+            blocks[i] = rng.integers(-32768, 32768, 320)
+        elif k == 5:
+            blocks[i] = (np.arange(320) * int(rng.integers(-200, 201))
+                         + int(rng.integers(-30000, 30001))).astype(np.int16)
+    return blocks.reshape(-1)
+
+
+def bits_bound(buf, nb):
+    """The bytes the data needs (heads, meta, each block's 40*w packed
+    bytes, the samples written) and about 14 integer operations a sample
+    (extract, un-zigzag, the scans)."""
+    w = buf[len(buf) - nb:] & 0x1F
+    need = 5 * nb + int((40 * np.where(w > 16, 0, w)).sum())
+    return bound(need + nb * 640, nb * 320 * 14)
+
+
+def elide_bound(buf, nb):
+    """The mask, the surviving pool rows and the samples written; one
+    multiply a sample."""
+    n_nz = int(np.count_nonzero(buf[len(buf) - nb:]))
+    return bound(2 * nb + 640 * n_nz + 640 * nb, nb * 320)
+
+
+def phase_codec_kernels(torch, dev, files):
+    """11(a): both decode kernels against their plain versions on the card,
+    bit-exact, on the 10 min mix's upload groups, the elide-route signal's,
+    one block at each width and order, an all-zero group and a seeded fuzz
+    of 20 signals; times at a 3-chunk group."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    plain = {"bits": codec.unpack_bits_plain,
+             "elide": codec.unpack_zero_elide_plain}
+    kernel = {"bits": codec.unpack_bits, "elide": codec.unpack_zero_elide}
+    cases = [(f"mix600 group {i}", g)
+             for i, g in enumerate(upload_groups(files["mix600"]))]
+    cases += [(f"elide group {i}", g)
+              for i, g in enumerate(upload_groups(elide_mix()))]
+    cases += [("every width and order", codec_every_width()),
+              ("all-zero group", upload_groups(np.zeros(SR, np.int16))[0])]
+    cases += [(f"fuzz {i}", codec_fuzz(500 + i)) for i in range(20)]
+    checked = {"bits": 0, "elide": 0}
+    timed = {}
+    for label, sig in cases:
+        nb = len(sig) // 320
+        packed = codec.pack_best(sig)
+        forced = [("bits", codec.pack_bits(sig, min_save=-1.0)),
+                  ("elide", codec.pack_zero_elide(sig))]
+        for kind, buf in ([packed] if packed else []) + forced:
+            if buf is None:
+                continue
+            x = torch.from_numpy(buf).to(dev)
+            got = kernel[kind](x, nb)
+            want = plain[kind](x, nb)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{label}: the {kind} kernel "
+                  "differs from its plain version")
+            check(np.array_equal(got.cpu().numpy(), sig),
+                  f"{label}: the {kind} kernel's samples are not the source")
+            checked[kind] += 1
+            if packed is not None and kind == packed[0] and kind not in timed \
+                    and nb == 6145:
+                ms = cuda_ms(lambda: kernel[kind](x, nb), 50, torch)
+                plain_ms = cuda_ms(lambda: plain[kind](x, nb), 10, torch)
+                bound_ms, bound_by = (bits_bound if kind == "bits"
+                                      else elide_bound)(buf, nb)
+                timed[kind] = (ms, plain_ms, bound_ms, bound_by, label,
+                               len(buf))
+    for kind, (ms, plain_ms, bound_ms, bound_by, label, n) in timed.items():
+        log(f"[codec] unpack_{kind} on {label} (6145 blocks, {n} bytes "
+            f"packed): kernel_ms={ms!r} plain_ms={plain_ms!r} "
+            f"bound_ms={bound_ms!r} ({bound_by})")
+    log(f"[codec] kernels bit-equal to their plain versions and to the "
+        f"source on {len(cases)} inputs ({checked['bits']} bits and "
+        f"{checked['elide']} elide buffers, the pack_best route and both "
+        f"forced)")
+    check(set(timed) == {"bits", "elide"}, f"untimed kernels: {timed}")
+    out = []
+    for kind, replaces in (("bits", ":227"), ("elide", ":115")):
+        ms, plain_ms, bound_ms, bound_by, label, _ = timed[kind]
+        name = "unpack_bits" if kind == "bits" else "unpack_zero_elide"
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "inaspeechsegmenter_tpu_torch/csrc/codec.cu",
+            "replaces": "inaspeechsegmenter_tpu/dsp/codec.py" + replaces,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_note": "no single PyTorch call decodes this format",
+            "shape": f"{label}: 6145 blocks of 320 int16 samples"})
+    return out
+
+
+def walls_in_turns(torch, fn, turns):
+    """Warm walls of ``fn()`` with ``ISS_UPLOAD_CODEC`` as ``turns`` says
+    -> {"on": [s, ...], "off": [...]}."""
+    walls = {"on": [], "off": []}
+    for mode in turns:
+        with env_set(ISS_UPLOAD_CODEC="1" if mode == "on" else "0"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+    return walls
+
+
+def phase_codec(torch, dev, workdir, seg, vfs, files, wavs, models):
+    """11: the upload codec and the frontend choice on the card.  -> (the
+    two kernels' JSON entries, launches of its main-path runs)."""
+    from inaspeechsegmenter_tpu_torch import OnlineSegmenter, Segmenter
+    from inaspeechsegmenter_tpu_torch import segmenter as tseg
+    from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import (
+        group_shipped_bytes)
+    from inaspeechsegmenter_tpu_torch.dsp.host_fe import HostSidekitFrontend
+    from inaspeechsegmenter_tpu_torch.vfs import STEP, WINLEN
+
+    t_phase = time.perf_counter()
+    entries = phase_codec_kernels(torch, dev, files)
+    per = {}
+
+    # (b) the main path with ISS_UPLOAD_CODEC=1
+    names = ["mix60", "mix600", "elide"]
+    sigs = {"mix60": files["mix60"], "mix600": files["mix600"],
+            "elide": elide_mix()}
+    paths = {"mix60": wavs[list(files).index("mix60")],
+             "mix600": wavs[list(files).index("mix600")],
+             "elide": os.path.join(workdir, "elide.wav")}
+    write_wav(paths["elide"], sigs["elide"], SR)
+    out = {m: [os.path.join(workdir, "codec_" + m, n + ".csv")
+               for n in names] for m in ("off", "on")}
+    for m in ("off", "on"):
+        with env_set(ISS_UPLOAD_CODEC="1" if m == "on" else "0"):
+            res = seg.batch_process([paths[n] for n in names], out[m])
+            check(res[1] == len(names), f"codec {m}: statuses {res[3]}")
+    for a, b in zip(out["off"], out["on"]):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            check(fa.read() == fb.read(), f"{b}: csv differs with the codec")
+    real_pack_best = codec.pack_best
+    for n in names:
+        shipped = []
+
+        def spy(raw):
+            p = real_pack_best(raw)
+            shipped.append(2 * len(raw) if p is None else p[1].nbytes)
+            return p
+
+        want = codec_route(sigs[n])
+        with env_set(ISS_UPLOAD_CODEC="1"):
+            expect, raw_b = group_shipped_bytes(sigs[n])
+            codec.pack_best = spy
+            reset_kernel_counts()
+            try:
+                seg(paths[n])
+                torch.cuda.synchronize()
+            finally:
+                codec.pack_best = real_pack_best
+        per[f"codec_{n}"] = got = kernel_counts()
+        check(sum(shipped) == expect, f"{n}: shipped {sum(shipped)} bytes, "
+              f"group_shipped_bytes {expect}")
+        check({k: got[k] for k in CODEC_KERNELS} == want,
+              f"{n}: decode launches {got}, the route gives {want}")
+        with env_set(ISS_UPLOAD_CODEC="1"):
+            check_segmentation_launches(got, n)
+        groups = upload_groups(sigs[n])
+        enc = [host_ms(lambda: real_pack_best(g), reps=3)[1]
+               for g in groups]
+        log(f"[codec] {n}: {len(groups)} groups, route {want}, shipped "
+            f"{sum(shipped)} of {raw_b} raw bytes (ratio "
+            f"{sum(shipped) / raw_b!r}, equal to group_shipped_bytes); host "
+            f"encode ms a group {enc}; csv byte-equal to the codec-off "
+            f"run; launches {got}")
+    check(per["codec_elide"]["unpack_zero_elide"] > 0,
+          "the elide file did not launch unpack_zero_elide")
+    walls = {n: walls_in_turns(torch, lambda: seg(paths[n]), CODEC_TURNS)
+             for n in ("mix60", "mix600")}
+    for n, w in walls.items():
+        on, off = float(np.median(w["on"])), float(np.median(w["off"]))
+        log(f"[codec] {n} warm Segmenter walls in turns {CODEC_TURNS} (s): "
+            f"{w}; median on {on!r}, off {off!r}, on/off {on / off!r} "
+            f"(worse by more than {CODEC_WALL_MARGIN}: "
+            f"{on > off * (1 + CODEC_WALL_MARGIN)})")
+
+    # VFS and the online segmenter with the codec on
+    res, feas = {}, {}
+    for m in ("off", "on"):
+        with env_set(ISS_UPLOAD_CODEC="1" if m == "on" else "0"):
+            if m == "on":
+                reset_kernel_counts()
+            res[m] = vfs(paths["mix60"])
+            if m == "on":
+                torch.cuda.synchronize()
+                per["codec_vfs_mix60"] = kernel_counts()
+            feas[m] = vfs._prepare(paths["mix60"])[1]
+    check(res["on"] == res["off"], f"VFS tuples differ: {res}")
+    check(torch.equal(feas["on"], feas["off"]),
+          "VBx features differ with the codec")
+    starts = np.arange(0, len(feas["on"]) - WINLEN, STEP)[:256]
+    xm = vfs.xvector_model
+    err = rel_l2(xm.embeddings_from_features(feas["on"], starts),
+                 xm.embeddings_from_features(feas["off"], starts))
+    check(err <= XVEC_REL_LIMIT, f"x-vectors differ by {err}")
+    check({k: per["codec_vfs_mix60"][k] for k in CODEC_KERNELS}
+          == codec_route(sigs["mix60"]), "the VFS upload's decodes")
+    finals = {}
+    for m in ("off", "on"):
+        with env_set(ISS_UPLOAD_CODEC="1" if m == "on" else "0"):
+            sig = sigs["mix600"]
+            online = OnlineSegmenter(seg)
+            if m == "on":
+                reset_kernel_counts()
+            for pos in range(0, len(sig), 10 * SR):
+                online.feed(sig[pos:pos + 10 * SR])
+            finals[m] = online.finalize()
+            if m == "on":
+                torch.cuda.synchronize()
+                per["codec_online_mix600"] = kernel_counts()
+                n_diff, n_fr = frames_differ(finals[m],
+                                             seg.segment_signal(sig))
+    check(finals["on"] == finals["off"], "the online finalize differs with "
+          "the codec")
+    check(n_diff <= 0.001 * n_fr, "online finalize vs segment_signal with "
+          "the codec differ on >0.1%")
+    check({k: per["codec_online_mix600"][k] for k in CODEC_KERNELS}
+          == codec_route(sigs["mix600"]), "the online groups' decodes")
+    log(f"[codec] vfs(mix60) with the codec on {res['on']} equal to off; VBx "
+        f"features bit-equal; {len(starts)} x-vectors rel L2 {err!r} "
+        f"(limit {XVEC_REL_LIMIT}); launches {per['codec_vfs_mix60']}. "
+        f"OnlineSegmenter over mix600 in 10 s blocks with the codec: "
+        f"finalize equal to the codec-off finalize, {n_diff} of {n_fr} "
+        f"frames differ from segment_signal; launches "
+        f"{per['codec_online_mix600']}")
+
+    # (c) the host frontend and the frontend choice
+    with env_set(ISS_FRONTEND="host"):
+        host = Segmenter("smn", True, ffmpeg=None, device=dev,
+                         model_dir=models, allow_download=False)
+    check(isinstance(host.frontend, HostSidekitFrontend),
+          f"ISS_FRONTEND=host gave {type(host.frontend).__name__}")
+    for n in ("mix60", "mix600"):
+        t0 = time.perf_counter()
+        got = host(paths[n])
+        wall = time.perf_counter() - t0
+        n_diff, n_fr = frames_differ(got, seg(paths[n]))
+        log(f"[frontend] {n} with the host frontend: wall {wall!r} s, "
+            f"{n_diff} of {n_fr} frames differ from the kernel frontend's")
+        check(n_diff <= 0.001 * n_fr, f"{n}: host frontend labels differ on "
+              ">0.1%")
+    kernel_fe = vfs.vad.frontend
+    vfs.vad.frontend = HostSidekitFrontend(dev)
+    try:
+        with env_set(ISS_UPLOAD_CODEC="1"):
+            host_res = vfs(paths["mix60"])
+    finally:
+        vfs.vad.frontend = kernel_fe
+    mbps = tseg._link_bandwidth_mbps(dev, max_age_s=0.0)
+    with env_set(ISS_FRONTEND="auto"):
+        choice = type(tseg._default_frontend(dev)).__name__
+    log(f"[frontend] vfs(mix60) with the host frontend (its own packed VBx "
+        f"upload): {host_res} (kernel frontend {res['off']}); link probe "
+        f"{mbps!r} MB/s; ISS_FRONTEND=auto takes {choice} on this host "
+        f"({os.cpu_count()} cores)")
+    check(host_res[2] >= 0 and host_res[1] >= 0, f"VFS {host_res}")
+    log(f"[phase 11] upload codec and frontend choice: "
+        f"{time.perf_counter() - t_phase!r} s")
+    return entries, per
 
 
 def main():
@@ -3177,7 +3642,11 @@ def main():
         per_ref.update(phase_overlap(torch, dev, vfs, files, wavs, models))
         per_ref["installed"] = phase_installed(torch, dev, workdir, files,
                                                wavs, models, resampled)
+        codec_entries, per_codec = phase_codec(torch, dev, workdir, seg, vfs,
+                                               files, wavs, models)
+        per_ref.update(per_codec)
     kernels.append(general)
+    kernels += codec_entries
     for k in kernels:
         name = k["name"]
         earlier = {"segmentation": per_file, "vfs": per_vfs_file,
@@ -3185,7 +3654,7 @@ def main():
         k["launches_per_file"] = {
             path: counts[name]
             for path, counts in {**earlier, **per_ref}.items()}
-        # the main-path runs of phases 2-10 (the kernels' comparisons with
+        # the main-path runs of phases 2-11 (the kernels' comparisons with
         # their plain versions excluded)
         k["launches"] = sum(c[name] for c in (
             launches, launches_vfs, per_online_file, launches_real,

@@ -2,8 +2,11 @@
 
 Copy of the bindings of ``inaspeechsegmenter_tpu/audio/native.py``: WAV
 decode, mono mixdown and the polyphase sinc resampler to 16 kHz, which
-``audio/io.py`` uses for a WAV at another rate when there is no ffmpeg.
-The upload codec's ``pack_bits`` is not bound (the codec is not ported).
+``audio/io.py`` uses for a WAV at another rate when there is no ffmpeg,
+and the upload codec's single-pass bit-packing encoder (``pack_bits``,
+byte-identical to ``dsp/codec.py``'s numpy encoder), bound only when the
+library reports codec format v2 (``issaudio-0.3.0`` or later,
+:func:`_pack_format_ok`): a stale build falls back to the numpy encoder.
 
 The library is, in this order (the JAX package's): a prebuilt one named
 by ``$ISS_AUDIO_LIB`` (a path that is missing or fails to load passes to
@@ -42,6 +45,7 @@ CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
+_PACK_OK = False   # iss_pack_bits present and speaking the current format
 
 
 def build_dir():
@@ -92,7 +96,22 @@ def build():
     return lib
 
 
+def _pack_format_ok(lib) -> bool:
+    """True when the library's ``iss_pack_bits`` writes the current codec
+    format: the bit-packing format changed in issaudio 0.3.0 (exact odd
+    and even widths, 32-byte sub-rows), and an older build would encode
+    buffers the decoders garble."""
+    try:
+        lib.iss_version.restype = ctypes.c_char_p
+        ver = lib.iss_version().decode()          # "issaudio-X.Y.Z"
+        parts = tuple(int(p) for p in ver.rsplit("-", 1)[1].split("."))
+        return parts >= (0, 3, 0)
+    except (AttributeError, IndexError, ValueError, UnicodeDecodeError):
+        return False
+
+
 def _bind(lib):
+    global _PACK_OK
     lib.iss_wav_info.restype = ctypes.c_int64
     lib.iss_wav_info.argtypes = [
         ctypes.c_char_p, ctypes.c_int64,
@@ -107,6 +126,12 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+    _PACK_OK = hasattr(lib, "iss_pack_bits") and _pack_format_ok(lib)
+    if _PACK_OK:
+        lib.iss_pack_bits.restype = ctypes.c_int64
+        lib.iss_pack_bits.argtypes = [
+            ctypes.POINTER(ctypes.c_int16), ctypes.c_int64, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
     return lib
 
 
@@ -186,6 +211,31 @@ def resample(sig: np.ndarray, sr_in: int, sr_out: int = 16000):
         cap)
     if n < 0:
         raise ValueError("native resample failed")
+    return out[:n]
+
+
+def pack_bits(sig_i16: np.ndarray, min_save: float = 0.05):
+    """The native encoder of ``dsp/codec.py::pack_bits``.
+
+    :return: the packed uint8 array; a 0-length array when packing would
+        not save ``min_save`` of the raw bytes (a decline); None when the
+        library, its ``iss_pack_bits`` or the current format is missing,
+        and the numpy encoder should run.
+    """
+    lib = load_library()
+    if lib is None or not _PACK_OK:
+        return None
+    sig = np.ascontiguousarray(sig_i16, np.int16)
+    nb = len(sig) // 320
+    cap = nb * 640 + 5 * nb + 2 * 128 * 1024
+    out = np.empty(cap, np.uint8)
+    n = lib.iss_pack_bits(
+        sig.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), len(sig),
+        min_save, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
+    if n < 0:
+        return None          # unexpected; the numpy encoder takes over
+    if n == 0:
+        return out[:0]       # declined
     return out[:n]
 
 

@@ -39,8 +39,12 @@ The signal differs from the f32 path's by at most one float32 rounding a
 sample (the dither is added in float32), and the cumsum's drift is
 bounded by the block extent instead of the file (``device_atol``).
 The device picks the path (``vbx_i16_enabled``): the int16 grid on a
-CUDA device, the reference-exact f32 path on the CPU.  The JAX package's
-upload codec is not ported: the port uploads raw int16.
+CUDA device, the reference-exact f32 path on the CPU.  The grid's own
+upload (``_features_i16``, when no segmenter upload is reused) takes the
+lossless upload codec where ``dsp.fe_kernel.upload_codec_enabled()``, as
+in the JAX package: the signal zero-padded to a 1,024-frame bucket plus
+the mirror tail's headroom, one ``pack_best`` decision, decoded on the
+device.
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ import torch
 
 from ..models.layers import precision_scope
 from ..utils.device import resolve_device
+from . import codec
+from .fe_kernel import upload_codec_enabled
 from .mel import kaldi_mel_fbank
 from .sidekit import _dft_matrices
 
@@ -271,11 +277,24 @@ class VbxFrontend:
                                       - sums / np.float32(win_len))
 
     def _features_i16(self, sig_i16, n):
-        """int16 device path: (n,) exact int16 samples -> (T, 64).  A raw
-        int16 upload, then the blocked grid (``VbxPcmStream``)."""
+        """int16 device path: (n,) exact int16 samples -> (T, 64).  The
+        upload, then the blocked grid (``VbxPcmStream``).  With the codec
+        on, the JAX package's upload (``dsp/vbx.py::_features_i16``
+        there): the samples zero-padded to a 1,024-frame bucket plus two
+        codec blocks of mirror-tail headroom, packed as one slice;
+        otherwise the n raw samples."""
+        sig = np.ascontiguousarray(sig_i16[:n], np.int16)
+        if upload_codec_enabled():
+            n_frames = (n - 80) // HOP + 1
+            t_bucket = -(-n_frames // 1024) * 1024
+            padded = np.zeros((t_bucket + 2) * HOP + 2 * codec.BLOCK,
+                              np.int16)
+            padded[:n] = sig
+            pcm = codec.ship(padded, self.device)
+        else:
+            pcm = torch.from_numpy(sig).to(self.device)
         stream = VbxPcmStream(self, n)
-        stream.append(torch.from_numpy(np.ascontiguousarray(
-            sig_i16[:n], np.int16)).to(self.device))
+        stream.append(pcm)
         return stream.finish()
 
     def features_from_pcm(self, pcm_parts, n):

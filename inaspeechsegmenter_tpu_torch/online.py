@@ -16,7 +16,8 @@ Guarantees and costs:
 
 * ``finalize()`` gives the offline labels of the whole signal
   (tests/test_torch_online.py): features come from the frontend's own
-  ``group_feats`` (one features launch a group of ``GROUP_CHUNKS`` chunks),
+  ``group_feats`` (one features launch a group of ``ISS_UPLOAD_CHUNKS``
+  chunks, each group's upload through the codec where it is on),
   chunk emissions from ``pipeline.chunk_emissions`` and the decode from
   ``pipeline.stream_decode``.  ``Segmenter.segment_signal`` runs the fused
   path, whose labels equal the streaming path's; on the CUDA device the
@@ -29,9 +30,14 @@ Guarantees and costs:
 * Memory is bounded: raw PCM is dropped as soon as its feature group is
   computed; the per-chunk device features (~0.4 MB per 41 s chunk) and the
   cached emissions are the state the decode needs anyway.
-* Availability granularity is one feature group (3 chunks, ~123 s): a
-  chunk's features are computed when its group's samples, plus the
-  2*HOP lookahead, have been fed, exactly like the offline grouping.
+* Availability granularity is one feature group (``ISS_UPLOAD_CHUNKS``,
+  3 chunks, ~123 s by default): a chunk's features are computed when its
+  group's samples, plus the 2*HOP lookahead, have been fed, exactly like
+  the offline grouping.
+* A frontend without ``group_feats`` (the host frontend,
+  ``dsp/host_fe.py``) makes the object a buffering passthrough: every
+  sample is kept and ``current()`` / ``finalize()`` hand the whole buffer
+  to ``segmenter.segment_signal``, as in the JAX package.
 
 ``OnlineVFS`` scores the same way.  An int16 stream on the int16 VBx grid
 (``dsp.vbx.vbx_i16_enabled``: a CUDA device) feeds a
@@ -56,7 +62,7 @@ import torch
 
 from .annotations import SpeechTimeline
 from .audio import wav as _wav
-from .dsp.fe_kernel import GROUP_CHUNKS
+from .dsp.fe_kernel import upload_chunks
 from .dsp.sidekit import CHUNK, HOP, frame_count
 from .dsp import vbx
 from .dsp.vbx import LC, RC, VbxFrontend, VbxPcmStreamOnline
@@ -100,7 +106,10 @@ class OnlineSegmenter:
     def __init__(self, segmenter, start_sec=0):
         self.seg = segmenter
         self.start_sec = start_sec
-        self._group = GROUP_CHUNKS
+        self._group = upload_chunks()
+        # a frontend without group computations: buffer everything and
+        # hand the offline path the whole signal
+        self._passthrough = not hasattr(segmenter.frontend, "group_feats")
         self._dtype = None          # decided by the first feed
         self._pending = None        # materialized samples not yet consumed
         self._tail = []             # fed blocks not yet materialized: feed()
@@ -150,6 +159,8 @@ class OnlineSegmenter:
         # a copy: capture callbacks reuse their buffer
         self._tail.append(np.array(pcm, dtype=self._dtype, copy=True))
         self._total += len(pcm)
+        if self._passthrough:
+            return self
         self._compute_ready_groups(final_pad_chunks=None)
         # commit pacing: a consumer that polls must never face an
         # unbounded suffix decode because it polled RARELY — once the
@@ -342,7 +353,7 @@ class OnlineSegmenter:
             return self._finalized
         t = frame_count(self._total)
         n_chunks = max(1, -(-t // CHUNK))
-        if t < 68 or n_chunks < 2:
+        if self._passthrough or t < 68 or n_chunks < 2:
             # the offline path's short-media branch; nothing has been
             # dropped yet (no group completed), so hand it the whole
             # buffer (same errors on too-short input)
@@ -467,7 +478,8 @@ def _follow_stream(path, online, idle_timeout, poll, on_update):
     pos = 0
     last_size = -1
     last_activity = time.time()
-    max_read = ((GROUP_CHUNKS * CHUNK + 2) * HOP) * 2   # one group, int16
+    # one upload group of int16 bytes a read
+    max_read = ((getattr(online, "_group", 3) * CHUNK + 2) * HOP) * 2
     while True:
         size = os.path.getsize(path) if os.path.exists(path) else 0
         if size != last_size:

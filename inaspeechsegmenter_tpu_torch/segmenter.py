@@ -14,12 +14,17 @@ no CUDA device raises rather than running on the CPU.  Tests pass
 Media decode goes through ffmpeg by default (``audio/io.py``); the CNNs
 load by their registry names from a released ``.hdf5`` or its converted
 npz (``models/registry.py``) and run at the ``ISS_CNN_PRECISION`` tier.
-Features come from the fused CUDA frontend (``dsp/fe_kernel.py``); the
-decodes from the CUDA Viterbi (``decode/viterbi.py``).
+Features come from the frontend :func:`_default_frontend` picks
+(``ISS_FRONTEND``): the fused CUDA kernel (``dsp/fe_kernel.py``, whose
+int16 uploads take the lossless codec under ``ISS_UPLOAD_CODEC``) or the
+host frontend (``dsp/host_fe.py``) on a slow link; the decodes from the
+CUDA Viterbi (``decode/viterbi.py``).
 """
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 import warnings
 
@@ -30,6 +35,7 @@ from .audio.io import check_ffmpeg, media2sig16kmono
 from .decode.transitions import diag_trans_exp
 from .decode.viterbi import viterbi_path
 from .dsp.fe_kernel import KernelSidekitFrontend
+from .dsp.host_fe import HostSidekitFrontend
 from .dsp.patches import frame_patches
 from .export import seg2csv, seg2textgrid
 from .models.registry import load_patch_model
@@ -178,7 +184,7 @@ class Segmenter:
             self.gender = Gender(batch_size, allow_download,
                                  device=self.device, model_dir=model_dir)
 
-        self.frontend = KernelSidekitFrontend(self.device)
+        self.frontend = _default_frontend(self.device)
         self.pipeline = FusedPipeline(
             self.vad.as_pipeline_stage(),
             self.gender.as_pipeline_stage() if detect_gender else None,
@@ -202,10 +208,11 @@ class Segmenter:
         """-> (mspec, loge, t, difflen), and the uploaded int16 signal
         (or None) with ``keep_pcm``."""
         with self.timers.time("features"):
-            mspec, loge, t, pcm = self.frontend.mspec_loge(sig, keep_pcm=True)
+            feats = self.frontend.mspec_loge(sig, keep_pcm=keep_pcm)
+        mspec, loge, t = feats[:3]
         mspec, difflen = short_media_pad(mspec, t, medianame)
         if keep_pcm:
-            return mspec, loge, t, difflen, pcm
+            return mspec, loge, t, difflen, feats[3]
         return mspec, loge, t, difflen
 
     def ids_to_lseg(self, ids, start_sec=0.0):
@@ -258,12 +265,24 @@ class Segmenter:
         keeps the streaming decomposition (``pipeline.run_streaming``) for
         the online family, whose labels equal these
         (tests/test_torch_streaming.py)."""
+        if not return_pcm:
+            return self._segment(*self._sig2feats(sig, medianame), start_sec)
         mspec, loge, t, difflen, pcm = self._sig2feats(sig, medianame,
                                                        keep_pcm=True)
         ret = self._segment(mspec, loge, t, difflen, start_sec)
-        if return_pcm:
-            return ret, (None if pcm is None else [pcm])
-        return ret
+        return ret, (None if pcm is None else [pcm])
+
+    def refresh_frontend(self):
+        """Take the ``ISS_FRONTEND=auto`` choice again against a fresh
+        (TTL-cached) link probe; a no-op unless the choice is ``auto`` and
+        it flipped.  ``batch_process`` calls it first, so a long-lived
+        worker adapts at its next batch (the JAX package's rule)."""
+        if os.environ.get("ISS_FRONTEND", "auto") != "auto":
+            return self.frontend
+        new = _default_frontend(self.device)
+        if type(new) is not type(self.frontend):
+            self.frontend = new
+        return self.frontend
 
     # ------------------------------------------------------------------
     def batch_process(self, linput, loutput, verbose=False, skipifexist=False,
@@ -283,6 +302,9 @@ class Segmenter:
             fexport = seg2textgrid
         else:
             raise NotImplementedError()
+        # a long-lived server's link probe may be stale: choose the
+        # frontend again a batch (never mid-batch: one frontend a batch)
+        self.refresh_frontend()
 
         produce = staged_producer(self._media2feats, skipifexist=skipifexist,
                                   nbtry=nbtry, trydelay=trydelay)
@@ -294,6 +316,60 @@ class Segmenter:
 
         return run_prefetched(list(zip(linput, loutput)), produce, consume,
                               verbose=verbose)
+
+
+_LINK_LOCK = threading.Lock()
+_LINK_MBPS = {}         # device -> (MB/s, time.monotonic() of the probe)
+
+
+def _link_bandwidth_mbps(device, max_age_s=None):
+    """Measured host-to-device bandwidth (MB/s) of ``device``, cached
+    for ``ISS_LINK_PROBE_TTL`` seconds (default 600; ``max_age_s``
+    overrides, ``float("inf")`` probes once a process).  The JAX
+    package's probe: a 4 MB warm-up copy, then 8 MB timed, pageable
+    ``torch.from_numpy(...).to(device)`` and a device sync."""
+    device = torch.device(device)
+    if max_age_s is None:
+        max_age_s = float(os.environ.get("ISS_LINK_PROBE_TTL", "600"))
+    with _LINK_LOCK:
+        now = time.monotonic()
+        cached = _LINK_MBPS.get(str(device))
+        if cached is None or now - cached[1] > max_age_s:
+            def copy(buf):
+                torch.from_numpy(buf).to(device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+
+            copy(np.zeros(1 << 20, np.float32))       # warm the path
+            t0 = time.perf_counter()
+            copy(np.ones(2 << 20, np.float32))
+            cached = (8.0 / max(time.perf_counter() - t0, 1e-6), now)
+            _LINK_MBPS[str(device)] = cached
+        return cached[0]
+
+
+def _default_frontend(device):
+    """The frontend for ``device`` (``ISS_FRONTEND``):
+
+    * ``host``: :class:`HostSidekitFrontend`, features on the host CPU,
+      only (mspec, loge) uploaded, 3.2x fewer link bytes than int16 PCM;
+    * ``auto`` (the default): the host frontend only on a CUDA device
+      whose host has at least 4 cores (to hide the FFTs behind the device
+      work) and whose link measures under 250 MB/s
+      (:func:`_link_bandwidth_mbps`); a CPU device never probes;
+    * anything else, the JAX package's ``jnp`` and ``pallas`` included:
+      :class:`KernelSidekitFrontend`, the port's one device frontend (the
+      JAX package's two are one kernel here).
+    """
+    device = torch.device(device)
+    choice = os.environ.get("ISS_FRONTEND", "auto")
+    if choice == "host":
+        return HostSidekitFrontend(device)
+    if (choice == "auto" and device.type == "cuda"
+            and (os.cpu_count() or 1) >= 4
+            and _link_bandwidth_mbps(device) < 250):
+        return HostSidekitFrontend(device)
+    return KernelSidekitFrontend(device)
 
 
 def patch_counts(t, difflen):

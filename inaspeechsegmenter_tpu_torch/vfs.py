@@ -26,7 +26,9 @@ forward runs at one of a few batch sizes.
 On a CUDA device the VBx features take the int16 grid
 (``dsp.vbx.vbx_i16_enabled``): an int16 signal's features come from the
 VAD's own upload (``Segmenter.segment_signal(return_pcm=True)``), with no
-host work of their own.  ``batch_score`` prefetches the next files' VAD
+host work of their own; under the host frontend, which uploads no
+samples, they take their own (``VbxFrontend._features_i16``, through the
+upload codec where it is on).  ``batch_score`` prefetches the next files' VAD
 and VBx features on producer threads; ``online.OnlineVFS`` scores a
 growing recording.  With ``mesh=`` each sub-batch of windows is split
 over the mesh's slots, one ResNet replica each (``parallel/mesh.py``).
@@ -585,11 +587,13 @@ class VoiceFemininityScoring:
         """The gates that do not depend on the signal: ``ISS_VFS_OVERLAP``
         neither ``auto`` nor ``0`` (the JAX package's ``auto`` takes the
         overlap; here it takes the serial schedule, see the module's
-        docstring), the standard Segmenter VAD, the one-device x-vector
+        docstring), the standard Segmenter VAD with a frontend of group
+        computations (not the host frontend), the one-device x-vector
         extractor and the int16 VBx grid."""
         return (os.environ.get("ISS_VFS_OVERLAP", "auto") not in ("auto",
                                                                   "0")
                 and isinstance(self.vad, Segmenter)
+                and hasattr(self.vad.frontend, "iter_group_feats")
                 and isinstance(self.xvector_model, TorchResnetExtractor)
                 and self.xvector_model.mesh is None
                 and isinstance(self.features, VbxFrontend)

@@ -53,6 +53,15 @@ step equal to an inference model's built from the updated parameters; and
 ``patch_dataset`` on the card against the CPU (patches within atol 1e-4,
 the features tolerance; labels and times equal; one features launch a
 file).
+
+The upload codec: both decode kernels (``csrc/codec.cu``) bit-equal to
+their plain versions on every content class of tests/test_torch_codec.py,
+a seeded fuzz, one block at each width and order, an all-zero slice and a
+decode into a slice of a larger buffer; bad buffers raise before any
+launch; with ``ISS_UPLOAD_CODEC=1`` the frontend's features (whole-file
+and group launches), the kept PCM and the Segmenter's labels equal the
+raw upload's, the pinned group upload stays free of host syncs, and the
+VBx frontend's own packed upload gives the raw upload's features.
 """
 
 import numpy as np
@@ -301,7 +310,7 @@ def test_vfs_cuda_matches_cpu(dev, tmp_path, monkeypatch):
     assert got == want and got[2] > 0
 
 
-# -- streaming, online and prefetch on the card --------------------------------
+# -- streaming, online and prefetch on the card -------------------------------
 
 @pytest.fixture(scope="module")
 def small_models(tmp_path_factory):
@@ -319,8 +328,9 @@ def test_group_features_match_plain_and_whole_signal_rows(dev, kind):
     launch over the whole signal (every frame reads only its own 400
     samples)."""
     from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import (
-        GROUP_CHUNKS, KernelSidekitFrontend)
+        KernelSidekitFrontend, upload_chunks)
 
+    GROUP_CHUNKS = upload_chunks()
     CHUNK, HOP = sidekit.CHUNK, sidekit.HOP
     sig = speechlike(4.4 * CHUNK * HOP / 16000, seed=9,
                      silences=[(3.0, 5.0), (130.0, 131.0)])
@@ -439,7 +449,7 @@ def test_prefetched_batch_process_matches_one_by_one(cuda_seg, tmp_path,
         assert open(out).read() == seg2csv(cuda_seg(wav))
 
 
-# -- real inputs: hdf5 weights and the precision tiers on the card --------------
+# -- real inputs: hdf5 weights and the precision tiers on the card ------------
 
 def test_hdf5_route_matches_npz_route(dev, small_models, tmp_path):
     """A Segmenter built from the ``.hdf5`` files of the small synthetic
@@ -880,7 +890,7 @@ def test_patch_dataset_cuda_matches_cpu(dev):
         np.testing.assert_array_equal(got[2], want[2])
 
 
-# -- the multi-GPU engine on a mesh of two slots on one card ----------------------
+# -- the multi-GPU engine on a mesh of two slots on one card ------------------
 
 def _card_mesh(dev, n=2):
     from inaspeechsegmenter_tpu_torch.parallel import make_mesh
@@ -1064,8 +1074,9 @@ def test_overlapped_vfs_equals_serial_and_cpu(dev, small_models,
     CPU's overlapped run's (both on the int16 grid), and it launches one
     features kernel a group and two Viterbi decodes for each chunk with a
     right neighbour, plus the final decode's two."""
-    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import GROUP_CHUNKS
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import upload_chunks
 
+    GROUP_CHUNKS = upload_chunks()
     CHUNK, HOP = sidekit.CHUNK, sidekit.HOP
     sig = _overlap_signal(n)
     vfs = _overlap_vfs(dev, small_models)
@@ -1141,3 +1152,129 @@ def test_embed_session_pinned_copies_equal_the_extractor(dev, small_models,
     want = xm.embeddings_from_features(fea, needed)
     rel = np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
     assert rel.max() <= 1e-4
+
+
+# -- the upload codec ---------------------------------------------------------
+
+def _codec_cases():
+    from torch_parity_helpers import (bin_edges, content_mix, elide_signal,
+                                      every_width_and_order, fuzz_signal,
+                                      mixed_signal, odd_widths)
+
+    cases = {"mixed": content_mix(), "bin_edges": bin_edges(),
+             "odd_widths": odd_widths(),
+             "every_width_and_order": every_width_and_order(),
+             "all_zero": np.zeros(3 * 512 * 320, np.int16),
+             "zero_heavy": mixed_signal(4 * 512 + 3, 0.9),
+             "elide": elide_signal(6145, 200, seed=5),
+             "speechlike": to_int16(speechlike(123.0, seed=3,
+                                               silences=[(2.0, 3.5)]))}
+    cases.update({f"fuzz{i}": fuzz_signal(100 + i) for i in range(20)})
+    return {k: v[:len(v) // 320 * 320] for k, v in cases.items()}
+
+
+def test_codec_kernels_match_plain(dev):
+    """Both decoders, one launch a call, bit-equal to the plain version and
+    the source on every case; a decode into a slice of a larger buffer
+    leaves the rest alone."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    for name, sig in _codec_cases().items():
+        nb = len(sig) // 320
+        for kind, buf in (("bits", codec.pack_bits(sig, min_save=-1.0)),
+                          ("elide", codec.pack_zero_elide(sig))):
+            if buf is None:
+                continue
+            fn = codec.unpack_bits if kind == "bits" else \
+                codec.unpack_zero_elide
+            plain = (codec.unpack_bits_plain if kind == "bits"
+                     else codec.unpack_zero_elide_plain)
+            x = torch.from_numpy(buf).to(dev)
+            before = fn.launches
+            got = fn(x, nb)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            want = plain(x, nb)
+            assert torch.equal(got, want), (name, kind)
+            np.testing.assert_array_equal(got.cpu().numpy(), sig)
+            big = torch.full((len(sig) + 640,), 7, dtype=torch.int16,
+                             device=dev)
+            fn(x, nb, out=big[320:320 + len(sig)])
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(big[320:-320].cpu().numpy(), sig)
+            assert (big[:320] == 7).all() and (big[-320:] == 7).all()
+
+
+def test_codec_kernels_reject_bad_buffers(dev):
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    sig = _codec_cases()["zero_heavy"]
+    nb = len(sig) // 320
+    for fn, buf in ((codec.unpack_bits, codec.pack_bits(sig)),
+                    (codec.unpack_zero_elide, codec.pack_zero_elide(sig))):
+        x = torch.from_numpy(buf).to(dev)
+        before = fn.launches
+        for bad, n in ((x.to(torch.int32), nb), (x, nb + 1), (x[:-1], nb),
+                       (torch.stack([x, x], 1).reshape(-1)[::2], nb)):
+            with pytest.raises(ValueError):
+                fn(bad, n)
+        with pytest.raises(ValueError):
+            fn(x, nb, out=torch.empty(nb * 320, dtype=torch.int16))
+        assert fn.launches == before
+
+
+@pytest.mark.parametrize("chunks", ["1", "3"])
+def test_frontend_with_codec_equals_raw(dev, monkeypatch, chunks):
+    """ISS_UPLOAD_CODEC=1 on the card: whole-file and group features, and
+    the kept PCM, bit-equal to the raw upload's; each group's decode
+    launched once; the pinned group uploads make no host sync."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import (
+        KernelSidekitFrontend, group_shipped_bytes)
+
+    monkeypatch.setenv("ISS_UPLOAD_CHUNKS", chunks)
+    CHUNK, HOP = sidekit.CHUNK, sidekit.HOP
+    sig = to_int16(speechlike(4.4 * CHUNK * HOP / 16000, seed=9,
+                              silences=[(3.0, 5.0), (130.0, 131.0)]))
+    fe = KernelSidekitFrontend(dev)
+    monkeypatch.setenv("ISS_UPLOAD_CODEC", "0")
+    m0, l0, t0, p0 = fe.mspec_loge(sig, keep_pcm=True)
+    g0 = [c for cg, _ in fe.iter_group_feats(sig, keep_pcm=True) for c in cg]
+    monkeypatch.setenv("ISS_UPLOAD_CODEC", "1")
+    before = codec.unpack_bits.launches + codec.unpack_zero_elide.launches
+    m1, l1, t1, p1 = fe.mspec_loge(sig, keep_pcm=True)
+    torch.cuda.synchronize()
+    groups = -(-5 // int(chunks))          # 4.4 chunks pad to 5
+    assert (codec.unpack_bits.launches + codec.unpack_zero_elide.launches
+            - before) == groups
+    assert t0 == t1 and torch.equal(m0, m1) and torch.equal(l0, l1)
+    assert torch.equal(p0, p1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g1 = [c for cg, _ in fe.iter_group_feats(sig, keep_pcm=True)
+              for c in cg]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (a, b), (c, d) in zip(g0, g1):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    shipped, raw = group_shipped_bytes(sig)
+    assert shipped < raw
+
+
+def test_segmenter_and_vbx_with_codec_equal_raw(dev, small_models,
+                                                monkeypatch):
+    from inaspeechsegmenter_tpu_torch import Segmenter
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+    from inaspeechsegmenter_tpu_torch.dsp.vbx import VbxFrontend
+
+    sig = to_int16(speechlike(95.0, seed=33, silences=[(40.0, 44.0)]))
+    seg = Segmenter("smn", True, ffmpeg=None, device=dev,
+                    model_dir=small_models)
+    fe = VbxFrontend(dev)
+    monkeypatch.setenv("ISS_UPLOAD_CODEC", "0")
+    off, fea0 = seg.segment_signal(sig), fe._features_i16(sig, len(sig))
+    monkeypatch.setenv("ISS_UPLOAD_CODEC", "1")
+    before = codec.unpack_bits.launches
+    assert seg.segment_signal(sig) == off
+    assert torch.equal(fe._features_i16(sig, len(sig)), fea0)
+    assert codec.unpack_bits.launches - before == 2

@@ -8,8 +8,9 @@ JAX package ``inaspeechsegmenter_tpu`` in an import anywhere in its sources
 or in ``chip_smoke.py``: neither on those paths nor on the reference's
 import paths (``io``, ``remote_utils``, ``viterbi_utils``,
 ``pyannote_viterbi``, ``features_vbx``, ``vbx_segmenter``, ``resnet``,
-``export_funcs``, ``thread_returning``, ``sidekit_mfcc``) and the
-overlapped VFS scorer, nor in the deployment tools (``tools.prewarm``,
+``export_funcs``, ``thread_returning``, ``sidekit_mfcc``), the
+overlapped VFS scorer and the upload path (the codec, the host frontend),
+nor in the deployment tools (``tools.prewarm``,
 ``tools.verify_weights``) or the installed console script.
 """
 
@@ -157,6 +158,70 @@ def test_port_runs_without_jax_pandas_h5py(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", CODE], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NO-JAX-OK" in r.stdout
+
+
+CODE_UPLOAD_PATH = r"""
+import os
+import sys
+for m in ("jax", "jaxlib", "pandas", "h5py", "inaspeechsegmenter_tpu"):
+    sys.modules[m] = None                # importing them now raises
+import numpy as np
+import inaspeechsegmenter_tpu_torch as port
+from inaspeechsegmenter_tpu_torch.audio import native
+from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel, vbx
+from inaspeechsegmenter_tpu_torch.dsp.host_fe import HostSidekitFrontend
+from inaspeechsegmenter_tpu_torch.models.resnet import ResNetXVector
+from inaspeechsegmenter_tpu_torch.models.synthetic import install_synthetic_models
+
+vbx.vbx_i16_enabled = lambda device: True       # the grid, also on the CPU
+install_synthetic_models("models", size="small")
+rng = np.random.default_rng(0)
+sig = (np.sin(np.arange(16000 * 50) * 0.05) * 3000
+       + rng.standard_normal(16000 * 50) * 300).astype(np.int16)
+sig[16000 * 5:16000 * 9] = 0
+os.environ["ISS_UPLOAD_CODEC"] = "0"
+seg = port.Segmenter("smn", True, ffmpeg=None, device="cpu",
+                     model_dir="models")
+off = seg.segment_signal(sig)
+os.environ["ISS_UPLOAD_CODEC"] = "1"
+assert native.pack_bits(sig[:320 * 1000]) is not None   # the native encoder
+assert codec.pack_best(sig[:(3 * 4096 + 2) * 160])[0] == "bits"
+assert seg.segment_signal(sig) == off
+online = port.OnlineSegmenter(seg)
+for pos in range(0, len(sig), 16000 * 5):
+    online.feed(sig[pos:pos + 16000 * 5])
+assert online.finalize() == off
+net = ResNetXVector("bottleneck", (1, 1, 1, 1), 8, 64, 256)
+scorer = port.VoiceFemininityScoring("bgc", ffmpeg=None, device="cpu",
+                                     model_dir="models", xvector_net=net,
+                                     xvector_params=net.init_params(seed=0))
+res = scorer.score_signal(sig)
+os.environ["ISS_FRONTEND"] = "host"
+host = port.Segmenter("smn", True, ffmpeg=None, device="cpu",
+                      model_dir="models")
+assert isinstance(host.frontend, HostSidekitFrontend)
+host.segment_signal(sig)
+scorer.vad.frontend = HostSidekitFrontend("cpu")
+scorer.score_signal(sig)
+assert fe_kernel.group_shipped_bytes(sig)[0] < 2 * len(sig)
+bad = [m for m in ("jax", "jaxlib", "pandas", "h5py",
+                   "inaspeechsegmenter_tpu") if sys.modules.get(m)]
+assert not bad, bad
+print("NO-JAX-OK")
+"""
+
+
+def test_upload_codec_and_host_frontend_without_jax(tmp_path):
+    """The codec (native encoder included) on segmentation, the online
+    segmenter and VFS on the int16 grid, and the host frontend, in a
+    process where importing jax or the JAX package fails."""
+    env = dict(os.environ, PYTHONPATH=REPO,
+               ISS_TORCH_BUILD_DIR=str(tmp_path / "build"))
+    r = subprocess.run([sys.executable, "-c", CODE_UPLOAD_PATH],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NO-JAX-OK" in r.stdout
 

@@ -77,6 +77,122 @@ def int16_grid_on_cpu(monkeypatch):
     monkeypatch.setattr(vbx, "vbx_i16_enabled", lambda device: True)
 
 
+# -- codec inputs (tests/test_torch_codec.py, and the card's cases in
+# tests/test_torch_cuda.py) ---------------------------------------------------
+
+CODEC_BLOCK = 320
+
+
+def mixed_signal(n_blocks, zero_frac, seed=0):
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(-3000, 3000, (n_blocks, CODEC_BLOCK))
+    blocks = blocks.astype(np.int16)
+    blocks[rng.random(n_blocks) < zero_frac] = 0
+    return blocks.reshape(-1)
+
+
+def content_mix():
+    """Every width/order class: silence, DC, ramps, tones, quiet and loud
+    noise, full-scale extremes (tests/test_codec.py's mix, shorter)."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([
+        np.zeros(SR * 2, np.int16),
+        np.full(SR, -12345, np.int16),
+        (np.arange(SR) % 30000 - 15000).astype(np.int16),
+        (np.sin(2 * np.pi * 440 * np.arange(SR * 2) / SR)
+         * 9000).astype(np.int16),
+        (np.sin(2 * np.pi * 7999 * np.arange(SR * 2) / SR)
+         * 32767).astype(np.int16),
+        (rng.standard_normal(SR * 2) * 37).astype(np.int16),
+        np.clip(rng.standard_normal(SR * 2) * 8000,
+                -32768, 32767).astype(np.int16),
+        np.array([-32768, 32767] * SR, np.int16),
+    ])
+
+
+def bin_edges():
+    """Blocks whose residual maxima sit on the zigzag width-bin edges."""
+    blocks = []
+    for v in (1, 2, 7, 8, 127, 128, 2047, 2048, 32767):
+        for s in (v, -v):
+            b = np.zeros(CODEC_BLOCK, np.int16)
+            b[::3] = s
+            b[1::3] = -s
+            blocks.append(b)
+    blocks.append(np.full(CODEC_BLOCK, -32768, np.int16))
+    return np.concatenate(blocks * 40)
+
+
+def odd_widths():
+    rng = np.random.default_rng(9)
+    blocks = rng.integers(-8, 9, (600, CODEC_BLOCK)).astype(np.int16)
+    blocks[:, ::7] = 12 * np.sign(blocks[:, ::7] + 1).astype(np.int16)
+    return blocks.reshape(-1)
+
+
+def white_noise():
+    rng = np.random.default_rng(1)
+    return np.clip(rng.standard_normal(SR * 10) * 20000,
+                   -32768, 32767).astype(np.int16)
+
+
+def elide_signal(n_blocks, zero_blocks, seed):
+    """Full-scale noise (bit-packing saves under 5%) with ``zero_blocks``
+    blocks of digital silence: the JAX ``pack_best`` takes ``elide``."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(-32768, 32768, (n_blocks, CODEC_BLOCK))
+    blocks = blocks.astype(np.int16)
+    blocks[rng.choice(n_blocks, zero_blocks, replace=False)] = 0
+    return blocks.reshape(-1)
+
+
+def fuzz_signal(seed, nb=200):
+    """Random per-block content classes (tests/test_codec.py's fuzz)."""
+    rng = np.random.default_rng(seed)
+    blocks = np.zeros((nb, CODEC_BLOCK), np.int16)
+    for i, k in enumerate(rng.integers(0, 6, nb)):
+        if k == 1:
+            blocks[i] = rng.integers(-32768, 32768)
+        elif k == 2:
+            blocks[i] = (np.sin(2 * np.pi * rng.uniform(10, 8000) / SR
+                                * np.arange(CODEC_BLOCK))
+                         * int(rng.integers(1, 32767))).astype(np.int16)
+        elif k == 3:
+            blocks[i] = np.clip(rng.standard_normal(CODEC_BLOCK)
+                                * float(rng.uniform(0.5, 20000)),
+                                -32768, 32767).astype(np.int16)
+        elif k == 4:
+            blocks[i] = rng.integers(-32768, 32768, CODEC_BLOCK)
+        elif k == 5:
+            blocks[i] = (np.arange(CODEC_BLOCK)
+                         * int(rng.integers(-200, 201))
+                         + int(rng.integers(-30000, 30001))).astype(np.int16)
+    return blocks.reshape(-1)
+
+
+def every_width_and_order(seed=12, copies=4):
+    """One codec block at each width 0..16 under each predictor order 0..2
+    (order 0 raw samples, 1 and 2 integrated residuals of that width),
+    ``copies`` times over so the pool spans a page."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for order in range(3):
+        for w in range(17):
+            hi = (1 << w) // 2 if w else 0
+            r = (rng.integers(-hi, hi, CODEC_BLOCK - 2) if w
+                 else np.zeros(CODEC_BLOCK - 2, np.int64))
+            if order == 0:
+                x = np.r_[0, 0, r]
+            else:
+                x = np.zeros(CODEC_BLOCK, np.int64)
+                x[0], x[1] = 3, 5
+                for n in range(2, CODEC_BLOCK):
+                    pred = x[n - 1] if order == 1 else 2 * x[n - 1] - x[n - 2]
+                    x[n] = pred + r[n - 2]
+            blocks.append(np.clip(x, -32768, 32767).astype(np.int16))
+    return np.concatenate(blocks * copies)
+
+
 def write_h5(path, datasets=(), attrs=()):
     """Write an HDF5 file with numpy alone: superblock v0, symbol-table
     groups, contiguous datasets, numeric and fixed-length string
