@@ -208,7 +208,13 @@ Phases, each fatal on failure (non-zero exit, no final line):
    elide-route signal (full-scale noise with 4 s of digital silence in
    each 3-chunk group), one block at each width 0..16 and order, an
    all-zero group and 20 fuzzed signals, each at its ``pack_best`` route
-   and both forced; kernel and plain ms at a 3-chunk group and the bound;
+   and both forced, and on the timed inputs; at three sizes (a 3-chunk
+   group of 6,145 blocks, the whole-file VBx slices of the 10 min mix and
+   of a seeded 1 h mix, ~30,000 and ~180,000 blocks) each decoder's
+   device time (``device_ms``: ``torch.profiler`` kernel durations over
+   distinct buffers that exceed the L2 twice over), call time (CUDA
+   events over back-to-back wrapper calls), the no-op kernel floor and
+   the bound; the plain version's ms at the 3-chunk group;
    (b) with ``ISS_UPLOAD_CODEC=1``: ``batch_process`` of the 60 s, 10 min
    and elide WAVs, csvs byte-equal to the codec-off run; each file once
    more, counted: bytes shipped equal to ``group_shipped_bytes`` (ratio
@@ -221,6 +227,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
    differing from the kernel frontend's, at most 0.1%), ``vfs(mix60)``
    with the host frontend, the link probe's MB/s and what ``auto`` takes
    on this host.
+
+Each kernel's row times it twice: ``device_ms``, its own device time
+(``torch.profiler``'s kernel durations over distinct inputs that together
+exceed the L2 cache twice over, so no call finds its inputs there; where
+three profiler windows each miss some of the launches, CUDA events around
+each call after a spinning kernel, and ``device_by`` says which) and
+``call_ms``, CUDA events around back-to-back wrapper calls on one input
+(the host's launch cost shows there when the kernel is short);
+``floor_ms`` is a near-empty kernel's device time under the same measure.
 
 The lines before the last are a JSON object of the kernels (launches
 summed over the main-path runs of phases 2-11, launches per file for
@@ -328,6 +343,115 @@ def cuda_ms(fn, reps, torch):
     return start.elapsed_time(end) / reps
 
 
+L2_ROTATE_BYTES = 100e6   # twice the H100's 50 MB L2: no call finds its
+                          # inputs there after the other calls' traffic
+
+
+def rotation(n_bytes):
+    """Distinct copies of a call's inputs and outputs (``n_bytes`` a copy)
+    that together exceed the L2 cache twice over (at least 2)."""
+    return max(2, -(-int(L2_ROTATE_BYTES) // max(1, int(n_bytes))))
+
+
+def profiler_ms(torch, calls, names, rounds):
+    """``calls`` run ``rounds`` times in turn under ``torch.profiler`` ->
+    the summed device durations of the kernels whose names contain one of
+    ``names`` over the number of calls, or None unless the window holds
+    each such kernel once a call (in a long process the profiler now and
+    then records none, or only some, of a window's kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    hits = [(e.self_device_time_total, e.count, e.key[:50])
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and any(n in e.key for n in names)]
+    n_calls = rounds * len(calls)
+    if not hits or any(count != n_calls for _, count, _ in hits):
+        log(f"[kernels] profiler window: {[h[1:] for h in hits]} for "
+            f"{n_calls} calls")
+        return None
+    return sum(h[0] for h in hits) / 1e3 / n_calls
+
+
+SPIN_CYCLES = 400_000   # ~0.2 ms of a spinning kernel: the card is busy
+                        # while the host enqueues the timed call
+
+
+def events_ms(torch, calls, rounds):
+    """``calls`` run ``rounds`` times in turn, each between two CUDA events
+    and after a spinning kernel that keeps the card busy while the host
+    enqueues the events and the call, so the pair brackets the call's
+    kernels and not the host's launch -> mean ms a call."""
+    pairs = []
+    for _ in range(rounds):
+        for fn in calls:
+            torch.cuda._sleep(SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+
+def device_ms(torch, calls, names, rounds=3):
+    """A kernel's own device time a call: ``calls`` (closures over distinct
+    buffers, ``rotation`` of them) after a warm-up, by ``profiler_ms``
+    (kernel durations by name; up to three windows) or, where no window
+    holds every launch, by ``events_ms``.  The launch cost on the host and
+    the wrapper's work are not in it (``cuda_ms`` is the call time).
+    -> (ms, "profiler" | "events")."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        ms = profiler_ms(torch, calls, names, rounds)
+        if ms is not None:
+            return ms, "profiler"
+    log(f"[kernels] device_ms: no complete profiler window of {names} in "
+        f"3; timed by events")
+    return events_ms(torch, calls, rounds), "events"
+
+
+_FLOOR = {}
+
+
+def floor_ms(torch, by):
+    """The device time of a kernel that does next to nothing (``zero_`` of
+    a one-element tensor: one thread stores 4 bytes) measured ``by`` the
+    profiler or by events, as ``device_ms`` measured the row beside it:
+    the least that a row can read.  Measured once a run and a measure."""
+    if by not in _FLOOR:
+        one = torch.empty(1, device="cuda")
+        calls = [one.zero_] * 100
+        if by == "profiler":
+            ms, got = device_ms(torch, calls, ("",))
+            _FLOOR[got] = ms
+            by = got
+        else:
+            _FLOOR[by] = events_ms(torch, calls, 3)
+        log(f"[kernels] no-op kernel floor by {by}: {_FLOOR[by]!r} ms")
+    return _FLOOR[by]
+
+
+def timing(torch, calls, names, call_fn, reps, rounds=3):
+    """``device_ms`` over ``calls`` and ``cuda_ms`` of ``call_fn`` ->
+    {"device_ms", "device_by", "call_ms", "floor_ms"}."""
+    dev_ms, by = device_ms(torch, calls, names, rounds)
+    return {"device_ms": dev_ms, "device_by": by,
+            "call_ms": cuda_ms(call_fn, reps, torch),
+            "floor_ms": floor_ms(torch, by)}
+
+
 # --------------------------------------------------------------------------
 def phase_features(torch, dev):
     from inaspeechsegmenter_tpu_torch.dsp import fe_kernel, sidekit
@@ -397,15 +521,26 @@ def phase_features(torch, dev):
         f"int16 signal ({len(chunks)} chunks): {n_diff} values differ from "
         "the whole-file launch's rows")
     check(n_diff == 0, "group rows are not bit-equal to whole-file rows")
-    ms, plain_ms = times[(FEATURE_SECONDS[-1], "int16")]
+    _, plain_ms = times[(FEATURE_SECONDS[-1], "int16")]
     bound_ms, bound_by = features_bound(FEATURE_SECONDS[-1] * SR, 2, consts)
+    t = sidekit.frame_count(len(arr))
+    copies = [torch.from_numpy(arr).to(dev)
+              for _ in range(rotation(arr.nbytes + t * 25 * 4))]
+    tm = timing(torch, [lambda x=x: fe_kernel.sidekit_features(x, consts)
+                        for x in copies], ("sidekit_fe_kernel",),
+                lambda: fe_kernel.sidekit_features(copies[0], consts), 20)
+    log(f"[kernels] sidekit_fe {FEATURE_SECONDS[-1]} s int16 (T={t}): "
+        f"device_ms={tm['device_ms']!r} ({tm['device_by']}) over "
+        f"{len(copies)} distinct signals, call_ms={tm['call_ms']!r}, "
+        f"floor_ms={tm['floor_ms']!r}, bound_ms={bound_ms!r} ({bound_by})")
     return {"name": "sidekit_fe", "route": "cuda",
             "source": "inaspeechsegmenter_tpu_torch/csrc/sidekit_fe.cu",
             "replaces": "inaspeechsegmenter_tpu/dsp/pallas_fe.py:188",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": worst, "ms": tm["device_ms"], **tm,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_note": "no single PyTorch call computes the function",
-            "shape": "600 s int16 signal, 59998 frames"}
+            "size": f"600 s int16 signal, {t} frames"}
 
 
 def features_bound(n_samples, sample_bytes, consts):
@@ -508,15 +643,26 @@ def phase_viterbi(torch, dev):
             f"{n_diff} of {VITERBI_T} states differ, passes={passes_1h}")
         check(n_diff == 0 and sk[0] == state,
               "viterbi with a near-one-hot initial vector differs")
-    ms, plain_ms, passes = out[(3, "random")]
+    _, plain_ms, passes = out[(3, "random")]
     bound_ms, bound_by = viterbi_bound(VITERBI_T, 3)
+    n_bytes = VITERBI_T * (3 * 4 + 1 + 4)
+    copies = [viterbi_args(torch, dev, 3, "random", VITERBI_T)
+              for _ in range(rotation(n_bytes))]
+    tm = timing(torch, [lambda a=a: tv.viterbi_scan(*a) for a in copies],
+                ("viterbi_kernel",), lambda: tv.viterbi_scan(*copies[0]), 5)
+    log(f"[kernels] viterbi K=3 random T={VITERBI_T}: device_ms="
+        f"{tm['device_ms']!r} ({tm['device_by']}) over {len(copies)} "
+        f"distinct inputs, call_ms="
+        f"{tm['call_ms']!r}, floor_ms={tm['floor_ms']!r}, bound_ms="
+        f"{bound_ms!r} ({bound_by})")
     return {"name": "viterbi", "route": "cuda",
             "source": "inaspeechsegmenter_tpu_torch/csrc/viterbi.cu",
             "replaces": "inaspeechsegmenter_tpu/decode/viterbi.py:222",
-            "max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": float(worst), "ms": tm["device_ms"], **tm,
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_note": "no single PyTorch call computes the function",
-            "passes": passes, "shape": f"T={VITERBI_T}, K=3, random"}
+            "passes": passes, "size": f"T={VITERBI_T}, K=3, random"}
 
 
 # --------------------------------------------------------------------------
@@ -1844,15 +1990,23 @@ def phase_general_viterbi(torch, dev):
         plain_ms = (time.perf_counter() - t0) * 1e3
         n_diff = int((sk != sp).sum())
         check(n_diff == 0, f"general-K kernel {name}: {n_diff} states differ")
-        ms = cuda_ms(lambda: tv.viterbi_scan_general(*args), 3, torch)
         parts = general_parts_ms(tv.viterbi_scan_general.last_ctl)
+        copies = [[torch.from_numpy(a).to(dev) for a in arrays]
+                  for _ in range(rotation(sum(a.nbytes for a in arrays)
+                                          + 4 * T))]
+        tm = timing(torch, [lambda a=a: tv.viterbi_scan_general(*a)
+                            for a in copies], ("gk_kernel",),
+                    lambda: tv.viterbi_scan_general(*args), 3, rounds=1)
         bound_ms, bound_by = viterbi_general_bound(T, K)
-        per_case[name] = {"ms": ms, "plain_ms": plain_ms, "passes": passes,
-                          "walked_chunks": walked, "chunks": chunks,
-                          "parts_ms": parts, "bound_ms": bound_ms,
-                          "bound_by": bound_by}
+        per_case[name] = {"ms": tm["device_ms"], **tm, "plain_ms": plain_ms,
+                          "passes": passes, "walked_chunks": walked,
+                          "chunks": chunks, "parts_ms": parts,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"[viterbi-k] kernel {name}, T={T}: states equal to the plain "
-            f"loop; kernel_ms={ms!r} passes={passes} walked_chunks={walked} "
+            f"loop; device_ms={tm['device_ms']!r} ({tm['device_by']}) over "
+            f"{len(copies)} "
+            f"distinct inputs, call_ms={tm['call_ms']!r}, floor_ms="
+            f"{tm['floor_ms']!r}, passes={passes} walked_chunks={walked} "
             f"of {chunks} parts_ms(passes, walk, maps, summaries, chain, "
             f"cumulative)={parts} plain_ms={plain_ms!r} bound_ms={bound_ms!r} "
             f"({bound_by})")
@@ -1861,10 +2015,12 @@ def phase_general_viterbi(torch, dev):
              "source": "inaspeechsegmenter_tpu_torch/csrc/viterbi.cu",
              "replaces": "inaspeechsegmenter_tpu/decode/viterbi.py:222",
              "max_abs_err": 0.0, "ms": main["ms"],
+             "device_ms": main["device_ms"], "device_by": main["device_by"],
+             "call_ms": main["call_ms"], "floor_ms": main["floor_ms"],
              "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
              "bound_by": main["bound_by"], "library_ms": None,
              "library_note": "no single PyTorch call computes the function",
-             "shape": f"T={T}, K={3 * GENERAL_K_CONSECUTIVE} (3 states, "
+             "size": f"T={T}, K={3 * GENERAL_K_CONSECUTIVE} (3 states, "
                       f"consecutive={GENERAL_K_CONSECUTIVE})",
              "cases": per_case}
     return entry, launches
@@ -3337,8 +3493,8 @@ def bits_bound(buf, nb):
     """The bytes the data needs (heads, meta, each block's 40*w packed
     bytes, the samples written) and about 14 integer operations a sample
     (extract, un-zigzag, the scans)."""
-    w = buf[len(buf) - nb:] & 0x1F
-    need = 5 * nb + int((40 * np.where(w > 16, 0, w)).sum())
+    w = (buf[len(buf) - nb:] & 0x1F).astype(np.int64)   # 40*w overflows
+    need = 5 * nb + int((40 * np.where(w > 16, 0, w)).sum())   # uint8
     return bound(need + nb * 640, nb * 320 * 14)
 
 
@@ -3349,11 +3505,76 @@ def elide_bound(buf, nb):
     return bound(2 * nb + 640 * n_nz + 640 * nb, nb * 320)
 
 
+CODEC_DEVICE_NAMES = {"bits": ("unpack_bits_kernel",),
+                      "elide": ("unpack_zero_elide_kernel",)}
+
+
+def vbx_slice(sig):
+    """The whole-file VBx upload of an int16 signal with the codec on
+    (``dsp/vbx.py::VbxFrontend._features_i16``): zero-padded to a
+    1,024-frame bucket plus two codec blocks of mirror-tail headroom."""
+    from inaspeechsegmenter_tpu_torch.dsp.codec import BLOCK
+    from inaspeechsegmenter_tpu_torch.dsp.sidekit import HOP
+
+    n_frames = (len(sig) - 80) // HOP + 1
+    t_bucket = -(-n_frames // 1024) * 1024
+    padded = np.zeros((t_bucket + 2) * HOP + 2 * BLOCK, np.int16)
+    padded[:len(sig)] = sig
+    return padded
+
+
+def codec_timing_cases(mix600, mix3600):
+    """The decoders' timed inputs at three sizes -> [(size, kind, sig,
+    packed buffer)]: a 3-chunk upload group (6,145 blocks: the 10 min mix's
+    first group for ``bits``, the elide-route signal's for ``elide``, each
+    its ``pack_best`` route), and the whole-file VBx slices of the 10 min
+    and of a 1 h seeded mix (~30,000 and ~180,000 blocks), each packed both
+    ways."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    group = upload_groups(mix600)[0]
+    egroup = upload_groups(elide_mix())[0]
+    check(codec.pack_best(group)[0] == "bits"
+          and codec.pack_best(egroup)[0] == "elide",
+          "the 3-chunk groups take their expected routes")
+    cases = [("3-chunk group", "bits", group, codec.pack_best(group)[1]),
+             ("3-chunk group", "elide", egroup, codec.pack_best(egroup)[1])]
+    for size, sig in (("10 min VBx slice", vbx_slice(mix600)),
+                      ("1 h VBx slice", vbx_slice(mix3600))):
+        cases += [(size, "bits", sig, codec.pack_bits(sig, min_save=-1.0)),
+                  (size, "elide", sig, codec.pack_zero_elide(sig))]
+    check(all(c[3] is not None for c in cases), "a timed input did not pack")
+    return cases
+
+
+def time_codec_case(torch, dev, kind, buf, nb, names, reps=None):
+    """One decoder on one packed buffer: ``device_ms`` over distinct copies
+    of the buffer decoding into distinct outputs, ``cuda_ms`` of the
+    wrapper as a caller calls it, and the bound -> dict."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    fn = codec.unpack_bits if kind == "bits" else codec.unpack_zero_elide
+    n_bytes = buf.nbytes + 640 * nb
+    copies = [(torch.from_numpy(buf).to(dev),
+               torch.empty(320 * nb, dtype=torch.int16, device=dev))
+              for _ in range(rotation(n_bytes))]
+    x = copies[0][0]
+    tm = timing(torch, [lambda b=b, o=o: fn(b, nb, out=o)
+                        for b, o in copies], names,
+                lambda: fn(x, nb), reps or (50 if nb < 10_000 else 10))
+    bound_ms, bound_by = (bits_bound if kind == "bits"
+                          else elide_bound)(buf, nb)
+    return {"blocks": nb, "packed_bytes": int(buf.nbytes), **tm,
+            "copies": len(copies), "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / tm["device_ms"]}
+
+
 def phase_codec_kernels(torch, dev, files):
     """11(a): both decode kernels against their plain versions on the card,
     bit-exact, on the 10 min mix's upload groups, the elide-route signal's,
-    one block at each width and order, an all-zero group and a seeded fuzz
-    of 20 signals; times at a 3-chunk group."""
+    one block at each width and order, an all-zero group, a seeded fuzz of
+    20 signals and the timed inputs of ``codec_timing_cases``; device and
+    call times at each timed size."""
     from inaspeechsegmenter_tpu_torch.dsp import codec
 
     plain = {"bits": codec.unpack_bits_plain,
@@ -3367,53 +3588,73 @@ def phase_codec_kernels(torch, dev, files):
               ("all-zero group", upload_groups(np.zeros(SR, np.int16))[0])]
     cases += [(f"fuzz {i}", codec_fuzz(500 + i)) for i in range(20)]
     checked = {"bits": 0, "elide": 0}
-    timed = {}
-    for label, sig in cases:
+
+    def check_decode(label, kind, sig, buf):
         nb = len(sig) // 320
+        x = torch.from_numpy(buf).to(dev)
+        got = kernel[kind](x, nb)
+        want = plain[kind](x, nb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{label}: the {kind} kernel "
+              "differs from its plain version")
+        check(np.array_equal(got.cpu().numpy(), sig),
+              f"{label}: the {kind} kernel's samples are not the source")
+        checked[kind] += 1
+
+    for label, sig in cases:
         packed = codec.pack_best(sig)
         forced = [("bits", codec.pack_bits(sig, min_save=-1.0)),
                   ("elide", codec.pack_zero_elide(sig))]
         for kind, buf in ([packed] if packed else []) + forced:
-            if buf is None:
-                continue
+            if buf is not None:
+                check_decode(label, kind, sig, buf)
+    t0 = time.perf_counter()
+    mix3600 = to_int16(seeded_mix(3600, seed=3600,
+                                  silences=silences_every(3600)))
+    timed = codec_timing_cases(files["mix600"], mix3600)
+    del mix3600
+    log(f"[codec] the timed inputs built and packed in "
+        f"{time.perf_counter() - t0!r} s")
+    rows = {"bits": [], "elide": []}
+    for size, kind, sig, buf in timed:
+        nb = len(sig) // 320
+        check_decode(f"{size} ({kind})", kind, sig, buf)
+        row = {"size": size, **time_codec_case(
+            torch, dev, kind, buf, nb, CODEC_DEVICE_NAMES[kind])}
+        if not rows[kind]:
             x = torch.from_numpy(buf).to(dev)
-            got = kernel[kind](x, nb)
-            want = plain[kind](x, nb)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), f"{label}: the {kind} kernel "
-                  "differs from its plain version")
-            check(np.array_equal(got.cpu().numpy(), sig),
-                  f"{label}: the {kind} kernel's samples are not the source")
-            checked[kind] += 1
-            if packed is not None and kind == packed[0] and kind not in timed \
-                    and nb == 6145:
-                ms = cuda_ms(lambda: kernel[kind](x, nb), 50, torch)
-                plain_ms = cuda_ms(lambda: plain[kind](x, nb), 10, torch)
-                bound_ms, bound_by = (bits_bound if kind == "bits"
-                                      else elide_bound)(buf, nb)
-                timed[kind] = (ms, plain_ms, bound_ms, bound_by, label,
-                               len(buf))
-    for kind, (ms, plain_ms, bound_ms, bound_by, label, n) in timed.items():
-        log(f"[codec] unpack_{kind} on {label} (6145 blocks, {n} bytes "
-            f"packed): kernel_ms={ms!r} plain_ms={plain_ms!r} "
-            f"bound_ms={bound_ms!r} ({bound_by})")
+            row["plain_ms"] = cuda_ms(lambda: plain[kind](x, nb), 10, torch)
+        rows[kind].append(row)
+        log(f"[codec] unpack_{kind} on the {size} ({nb} blocks, "
+            f"{buf.nbytes} bytes packed): device_ms={row['device_ms']!r} "
+            f"({row['device_by']}) over {row['copies']} distinct buffers, "
+            f"call_ms="
+            f"{row['call_ms']!r}, floor_ms={row['floor_ms']!r}, bound_ms="
+            f"{row['bound_ms']!r} ({row['bound_by']}), share of the bound "
+            f"{row['share_of_bound']!r}"
+            + (f", plain_ms={row['plain_ms']!r}" if "plain_ms" in row
+               else ""))
     log(f"[codec] kernels bit-equal to their plain versions and to the "
-        f"source on {len(cases)} inputs ({checked['bits']} bits and "
-        f"{checked['elide']} elide buffers, the pack_best route and both "
-        f"forced)")
-    check(set(timed) == {"bits", "elide"}, f"untimed kernels: {timed}")
+        f"source on {len(cases)} inputs and the {len(timed)} timed buffers "
+        f"({checked['bits']} bits and {checked['elide']} elide buffers, "
+        f"the pack_best route and both forced)")
     out = []
     for kind, replaces in (("bits", ":227"), ("elide", ":115")):
-        ms, plain_ms, bound_ms, bound_by, label, _ = timed[kind]
+        group = rows[kind][0]
         name = "unpack_bits" if kind == "bits" else "unpack_zero_elide"
         out.append({
             "name": name, "route": "cuda",
             "source": "inaspeechsegmenter_tpu_torch/csrc/codec.cu",
             "replaces": "inaspeechsegmenter_tpu/dsp/codec.py" + replaces,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": 0.0, "ms": group["device_ms"],
+            "device_ms": group["device_ms"], "device_by": group["device_by"],
+            "call_ms": group["call_ms"],
+            "floor_ms": group["floor_ms"], "plain_ms": group["plain_ms"],
+            "bound_ms": group["bound_ms"], "bound_by": group["bound_by"],
+            "library_ms": None,
             "library_note": "no single PyTorch call decodes this format",
-            "shape": f"{label}: 6145 blocks of 320 int16 samples"})
+            "size": f"{group['size']}: {group['blocks']} blocks of 320 "
+                    f"int16 samples", "sizes": rows[kind]})
     return out
 
 

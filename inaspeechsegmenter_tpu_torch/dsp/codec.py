@@ -23,8 +23,9 @@ library loads, byte-identical).  The device decoders rebuild the exact
 int16 signal:
 
 * :func:`unpack_bits` and :func:`unpack_zero_elide` launch the hand CUDA
-  kernels of ``csrc/codec.cu`` for a CUDA tensor (one count on their
-  ``launches`` a call) and run their plain PyTorch versions
+  kernels of ``csrc/codec.cu`` for a CUDA tensor (one launch and one
+  count on their ``launches`` a call; nothing is allocated but the
+  output) and run their plain PyTorch versions
   (:func:`unpack_bits_plain`, :func:`unpack_zero_elide_plain`,
   transcriptions of the JAX decoders) for a CPU tensor.  A CUDA tensor
   that the kernel cannot take raises; nothing falls back.
@@ -260,12 +261,11 @@ def unpack_zero_elide(buf, nb, out=None):
         return out
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
-    rows = torch.empty(nb, dtype=torch.int32, device=buf.device)
     lib = cuda_build.library()
     with torch.cuda.device(buf.device):
         rc = lib.iss_unpack_zero_elide(
-            buf.data_ptr(), pool // BLOCK, nb, rows.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream)
+            buf.data_ptr(), pool // BLOCK, nb, out.data_ptr(), 0,
+            torch.cuda.current_stream(buf.device).cuda_stream)
     cuda_build.check_launch("unpack_zero_elide", rc)
     cuda_build.count_launch(unpack_zero_elide)
     return out
@@ -343,13 +343,11 @@ def unpack_bits(buf, nb, out=None):
         return out
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
-    rank = torch.empty(nb, dtype=torch.int32, device=buf.device)
-    totals = torch.empty(N_WIDTHS, dtype=torch.int32, device=buf.device)
     lib = cuda_build.library()
     with torch.cuda.device(buf.device):
         rc = lib.iss_unpack_bits(
-            buf.data_ptr(), hp, nb, rank.data_ptr(), totals.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(buf.device).cuda_stream)
+            buf.data_ptr(), hp, nb, out.data_ptr(), 0,
+            torch.cuda.current_stream(buf.device).cuda_stream)
     cuda_build.check_launch("unpack_bits", rc)
     cuda_build.count_launch(unpack_bits)
     return out

@@ -135,12 +135,12 @@ _SIGNATURES = {
     "iss_viterbi_general": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
                             _P, _P, _P],
-    # (buf, pool_bytes, nb, rank, totals, out, stream)
-    "iss_unpack_bits": [_P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P,
-                        _P],
-    # (buf, pool_rows, nb, row, out, stream)
-    "iss_unpack_zero_elide": [_P, ctypes.c_longlong, ctypes.c_int, _P, _P,
-                              _P],
+    # (buf, pool_bytes, nb, out, grid (0: the persistent grid), stream)
+    "iss_unpack_bits": [_P, ctypes.c_longlong, ctypes.c_int, _P,
+                        ctypes.c_int, _P],
+    # (buf, pool_rows, nb, out, grid, stream)
+    "iss_unpack_zero_elide": [_P, ctypes.c_longlong, ctypes.c_int, _P,
+                              ctypes.c_int, _P],
 }
 
 

@@ -29,9 +29,9 @@ from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
 from inaspeechsegmenter_tpu_torch.dsp.codec import BLOCK, PAGE
 from torch_parity_helpers import (bin_edges, content_mix, elide_signal,
                                   every_width_and_order, fuzz_signal,
-                                  int16_grid_on_cpu, mixed_signal,
-                                  odd_widths, speechlike, to_int16,
-                                  white_noise)
+                                  int16_grid_on_cpu, kernel_constant,
+                                  mixed_signal, odd_widths, speechlike,
+                                  to_int16, white_noise)
 
 SR = 16000
 
@@ -182,102 +182,290 @@ def test_plain_bits_decoder_fuzz(trial):
     np.testing.assert_array_equal(out.numpy(), sig)
 
 
-def _model_ranks(w):
-    """The CUDA rank pass (bits_rank_kernel): tiles of 1024 blocks, a
-    block's rank within its warp among the blocks of its width, the
-    per-width exclusive scan over the tile's 32 warps, a carry a width."""
-    nb = len(w)
-    rank = np.zeros(nb, np.int64)
-    carry = np.zeros(17, np.int64)
-    for base in range(0, nb, 1024):
-        tile = w[base:base + 1024]
-        warp_cnt = np.zeros((32, 17), np.int64)
-        in_warp = np.zeros(len(tile), np.int64)
-        for i, wi in enumerate(tile):
-            lo = i - i % 32
-            group = tile[lo:lo + 32]
-            in_warp[i] = int((group[:i - lo] == wi).sum())
-            if in_warp[i] == 0:
-                warp_cnt[i // 32, wi] = int((group == wi).sum())
-        off = np.cumsum(warp_cnt, 0) - warp_cnt + carry
-        carry += warp_cnt.sum(0)
-        rank[base:base + len(tile)] = off[np.arange(len(tile)) // 32,
-                                          tile] + in_warp
-    return rank, carry
+# -- a numpy model of the CUDA decoders (csrc/codec.cu) -----------------------
+
+THREADS = kernel_constant("codec.cu", "THREADS")   # a CTA, blocks a tile
+SPAN_WORDS = kernel_constant("codec.cu", "SPAN_WORDS")
+GRIDS = [1, 3, 132, 264]        # CTAs, past nb for the short cases
+SUB = (40 * np.arange(17) + 31) // 32
+U32 = np.uint32
 
 
-def _model_unpack_bits(buf, nb):
-    """The CUDA decode (bits_decode_kernel) in numpy: offsets from the
-    ranks and the per-width totals, the block's bytes staged with zeros
-    past 40*w, ten slots a lane, scans of the lane sums, all in wrapping
-    32-bit unsigned arithmetic; the low 16 bits stored."""
-    hp = len(buf) - 5 * nb
-    meta = buf[hp + 4 * nb:].astype(np.int64)
-    w = meta & 0x1F
+def _model_ranges(nb, grid):
+    """CTA c decodes [c*R, (c+1)*R) within nb, R = ceil(nb / grid); a CTA
+    past nb has nothing to do."""
+    per = -(-nb // grid)
+    return [(min(nb, c * per), min(nb, c * per + per)) for c in range(grid)]
+
+
+def _model_count_widths(meta, start, align):
+    """count_widths in numpy: one pass of the CTA's threads over every
+    meta byte (meta's address is ``align`` mod 16), bytes before
+    ``start`` into one counter and the rest into another.  Each thread's
+    units: a byte before the first 16-byte boundary or after the last, or
+    half a 16-byte vector (a vector wholly on one side counts into that
+    side's counter; the vector across ``start`` splits byte by byte and
+    flushes both counters).  A counter keeps a nibble a width from 1 <<
+    (4w - 4) in unsigned arithmetic (a shift of 32 or more gives 0:
+    widths 0 and 17..31 count nowhere), flushed after each unit into byte
+    fields, which drain every 31 flushes and at the end.  Asserts that no
+    nibble reaches 16 and no byte field 256.  -> (before, after), each
+    (17,) with [0] = 0 (the kernel infers width 0)."""
+    seg = meta.astype(np.int64) & 0x1F
+    n = len(seg)
+    head = min(n, (16 - align % 16) % 16)
+    nvec = (n - head) // 16 if n > head else 0
+    tail0 = head + 16 * nvec
+    s = (4 * np.arange(32) - 4) % 2 ** 32          # the shift of each w
+    nibble = np.full(32, -1)                       # w -> nibble 0..15
+    nibble[s < 32] = s[s < 32] // 4
+    hi_s = (s - 32) % 2 ** 32
+    nibble[hi_s < 32] = 8 + hi_s[hi_s < 32] // 4
+    fields = np.zeros((2, THREADS, 16), np.int64)  # byte field of width k+1
+    flushes = np.zeros((2, THREADS), np.int64)
+    counts = np.zeros((2, 17), np.int64)
+    t = np.arange(THREADS)
+
+    def unit(at, size, active, flush_both):
+        """A unit of ``size`` bytes at ``at`` (per thread), then flushes."""
+        nib = np.zeros((2, THREADS, 16), np.int64)
+        for k in range(size):
+            ok = active & (at + k < n)
+            idx = at[ok] + k
+            side = (idx >= start).astype(np.int64)
+            nb_ = nibble[seg[idx]]
+            c = nb_ >= 0
+            np.add.at(nib, (side[c], t[ok][c], nb_[c]), 1)
+        assert nib.max() < 16
+        first = at < start
+        touched = [active & (flush_both | first),
+                   active & (flush_both | ~first)]
+        for side in (0, 1):
+            act = touched[side]
+            fields[side][act] += nib[side][act]
+            assert fields.max() < 256
+            flushes[side][act] += 1
+            full = flushes[side] == 31
+            counts[side, 1:] += fields[side][full].sum(0)
+            fields[side][full] = 0
+            flushes[side][full] = 0
+
+    no = np.zeros(THREADS, bool)
+    for r0 in range(0, head, THREADS):
+        unit(r0 + t, 1, r0 + t < head, no)
+    for r0 in range(0, nvec, THREADS):
+        idx = r0 + t
+        at = head + 16 * idx
+        across = (at < start) & (at + 16 > start)
+        for half in range(2):
+            unit(at + 8 * half, 8, idx < nvec, across)
+    for r0 in range(tail0, n, THREADS):
+        unit(r0 + t, 1, r0 + t < n, no)
+    counts[:, 1:] += fields.sum(1)
+    return counts[0], counts[1]
+
+
+def _model_rows(meta, grid, align):
+    """Each block's first pool sub-row, as the CTAs of a grid compute it:
+    the sweep's counts before the range and from it on, the width bases
+    over the whole buffer, then per tile of THREADS blocks the in-warp
+    ranks (the earlier lanes of the warp with the same width), the
+    per-width exclusive scan over the warps, and the carry."""
+    nb = len(meta)
+    w = meta.astype(np.int64) & 0x1F
     w[w > 16] = 0
-    rank, totals = _model_ranks(w)
-    sub = (40 * np.arange(17) + 31) // 32
-    size = totals * sub
-    size[0] = 0
-    base = np.cumsum(size) - size
-    out = np.zeros((nb, BLOCK), np.uint32)
-    u32 = np.uint32
+    rows = np.full(nb, -1, np.int64)
+    for start, end in _model_ranges(nb, grid):
+        if start >= end:
+            continue
+        before, after = _model_count_widths(meta, start, align)
+        before[0] = start - before[1:].sum()
+        after[0] = nb - start - after[1:].sum()
+        size = (before + after) * SUB
+        pos = np.cumsum(size) - size + before * SUB
+        for t0 in range(start, end, THREADS):
+            tw = w[t0:min(end, t0 + THREADS)]
+            onehot = np.eye(17, dtype=np.int64)[tw]
+            warp = np.arange(len(tw)) // 32
+            in_warp = np.zeros(len(tw), np.int64)
+            warp_cnt = np.zeros((warp[-1] + 1, 17), np.int64)
+            for i in range(warp[-1] + 1):
+                oh = onehot[warp == i]
+                in_warp[warp == i] = (np.cumsum(oh, 0) - oh)[
+                    np.arange(len(oh)), tw[warp == i]]
+                warp_cnt[i] = oh.sum(0)
+            warp_off = pos + (np.cumsum(warp_cnt, 0) - warp_cnt) * SUB
+            rows[t0:t0 + len(tw)] = (warp_off[warp, tw]
+                                     + in_warp * SUB[tw])
+            pos = pos + warp_cnt.sum(0) * SUB
+    return rows
+
+
+def _model_unpack_bits(buf, nb, grid=132, align=0):
+    """The bit decoder in numpy: the rows of ``_model_rows``; each block's
+    16-byte pieces staged with zeros at and past the pool's end; slot s
+    the bits [s*w, s*w + w) of the staged 32-bit little-endian words (a
+    funnel shift of two words); un-zigzag, slots 318-319 zero; ten slots a
+    lane, scans of the lane sums, all in wrapping 32-bit unsigned
+    arithmetic; the low 16 bits stored."""
+    hp = len(buf) - 5 * nb
+    meta = buf[hp + 4 * nb:]
+    w = meta.astype(np.int64) & 0x1F
+    w[w > 16] = 0
+    order = meta.astype(np.int64) >> 5
+    off = 32 * _model_rows(meta, grid, (align + hp + 4 * nb) % 16)
+    span = np.zeros((nb, SPAN_WORDS * 4), np.uint8)
     for b in range(nb):
-        wb, order = int(w[b]), int(meta[b] >> 5)
-        h = buf[hp + 4 * b:hp + 4 * b + 4].astype(np.int64)
-        x0 = u32(((h[0] | h[1] << 8) ^ 0x8000) - 0x8000 & 0xFFFFFFFF)
-        x1 = u32(((h[2] | h[3] << 8) ^ 0x8000) - 0x8000 & 0xFFFFFFFF)
-        dx = u32((int(x1) - int(x0)) & 0xFFFFFFFF)
-        off = int(base[wb] + rank[b] * sub[wb]) * 32
-        span = np.zeros(40 * 16 + 8, np.uint32)
-        take = max(0, min(40 * wb, hp - off))
-        span[:take] = buf[off:off + take]
-        slot = np.arange(BLOCK)
-        bit = slot * wb
-        by = bit >> 3
-        v = span[by] | (span[by + 1] << u32(8)) | (span[by + 2] << u32(16))
-        z = (v >> (bit & 7).astype(np.uint32)) & u32((1 << wb) - 1)
-        r = np.where(slot < 318, (z >> u32(1)) ^ (u32(0) - (z & u32(1))),
-                     u32(0)).astype(np.uint32)
-        lanes = r.reshape(32, 10)
-        excl = np.cumsum(lanes.sum(1, dtype=np.uint32), dtype=np.uint32) \
-            - lanes.sum(1, dtype=np.uint32)
-        c1 = (excl[:, None] + np.cumsum(lanes, 1, dtype=np.uint32)).reshape(-1)
-        if order == 0:
-            body = r
-        elif order == 1:
-            body = x1 + c1
-        else:
-            d = (dx + c1).reshape(32, 10)
-            excl2 = np.cumsum(d.sum(1, dtype=np.uint32), dtype=np.uint32) \
-                - d.sum(1, dtype=np.uint32)
-            body = x1 + (excl2[:, None] + np.cumsum(d, 1, dtype=np.uint32)
-                         ).reshape(-1)
-        out[b, 0], out[b, 1] = x0, x1
-        out[b, 2:] = body[:318]
-    return (out & u32(0xFFFF)).astype(np.uint16).view(np.int16).reshape(-1)
+        take = max(0, min(16 * -(-40 * int(w[b]) // 16), hp - off[b]))
+        span[b, :take] = buf[off[b]:off[b] + take]
+    words = span.view("<u4").astype(np.uint64)
+    slot = np.arange(BLOCK)
+    bit = slot[None, :] * w[:, None]
+    wi = bit >> 5
+    pair = (np.take_along_axis(words, wi + 1, 1) << np.uint64(32)) \
+        | np.take_along_axis(words, wi, 1)
+    z = ((pair >> (bit & 31).astype(np.uint64))
+         & ((np.uint64(1) << w[:, None].astype(np.uint64)) - np.uint64(1))
+         ).astype(U32)
+    r = np.where(slot < 318, (z >> U32(1)) ^ (U32(0) - (z & U32(1))),
+                 U32(0)).astype(U32)
+    h = buf[hp:hp + 4 * nb].reshape(nb, 4).astype(np.int64)
+    x0 = ((((h[:, 0] | h[:, 1] << 8) ^ 0x8000) - 0x8000)
+          & 0xFFFFFFFF).astype(U32)[:, None]
+    x1 = ((((h[:, 2] | h[:, 3] << 8) ^ 0x8000) - 0x8000)
+          & 0xFFFFFFFF).astype(U32)[:, None]
+
+    def lane_scan(v):                    # inclusive, 10 slots a lane
+        lanes = v.reshape(nb, 32, 10)
+        tot = lanes.sum(2, dtype=U32)
+        excl = np.cumsum(tot, 1, dtype=U32) - tot
+        return (excl[:, :, None] + np.cumsum(lanes, 2, dtype=U32)
+                ).reshape(nb, BLOCK)
+
+    c1 = lane_scan(r)
+    o2 = x1 + lane_scan(((x1 - x0) + c1).astype(U32))
+    body = np.where(order[:, None] == 0, r,
+                    np.where(order[:, None] == 1, x1 + c1, o2))
+    out = np.concatenate([x0, x1, body[:, :318]], 1).astype(U32)
+    return (out & U32(0xFFFF)).astype(np.uint16).view(np.int16).reshape(-1)
 
 
+def _model_unpack_zero_elide(buf, nb, grid=132):
+    """The elision decoder in numpy: each CTA's carry is the sum of the
+    mask values before its range (int64); per tile of THREADS blocks the
+    rows are the carry plus the tile's inclusive sums, minus one, clamped
+    to the pool; a block is its row times its mask value (int16,
+    wrapping), zeros where the value is 0."""
+    mask = buf[len(buf) - nb:].astype(np.int64)
+    pool = buf[:len(buf) - nb].reshape(-1, BLOCK)
+    out = np.full((nb, BLOCK), 7, np.int16)
+    for start, end in _model_ranges(nb, grid):
+        if start >= end:
+            continue
+        carry = int(mask[:start].sum())
+        for t0 in range(start, end, THREADS):
+            m = mask[t0:min(end, t0 + THREADS)]
+            row = np.clip(carry + np.cumsum(m) - 1, 0, len(pool) - 1)
+            prod = (pool[row].astype(np.int64) * m[:, None]).astype(np.int16)
+            out[t0:t0 + len(m)] = np.where(m[:, None] == 0, 0, prod)
+            carry += int(m.sum())
+    return out.reshape(-1)
+
+
+_JAX_CACHE = {}
+
+
+def _jax_decode_cached(key, kind, buf, nb):
+    if key not in _JAX_CACHE:
+        _JAX_CACHE[key] = _jax_decode(kind, buf, nb)
+    return _JAX_CACHE[key]
+
+
+@pytest.mark.parametrize("grid", GRIDS)
 @pytest.mark.parametrize("case", ["mixed", "bin_edges", "odd_widths",
                                   "speechlike", "all_zero"])
-def test_kernel_model_matches_plain(case):
-    """The CUDA algorithm, modelled in numpy, equals the plain decoder on
-    more than one tile of 1024 blocks, every width and every order."""
+def test_kernel_model_matches_plain(case, grid):
+    """The CUDA bit decoder, modelled in numpy at a grid of ``grid`` CTAs,
+    equals the source, the plain decoder and the JAX decoder on more than
+    one tile of blocks, every width and every order."""
     sig = _sig(case)
     nb = len(sig) // BLOCK
     buf = codec.pack_bits(sig, min_save=-1.0, allow_native=False)
-    np.testing.assert_array_equal(_model_unpack_bits(buf, nb), sig)
+    got = _model_unpack_bits(buf, nb, grid)
+    np.testing.assert_array_equal(got, sig)
+    np.testing.assert_array_equal(
+        got, codec.unpack_bits_plain(torch.from_numpy(buf), nb).numpy())
+    np.testing.assert_array_equal(
+        got, _jax_decode_cached(("bits", case), "bits", buf, nb))
 
 
-def test_kernel_model_ranks_match_width_cumsum():
+@pytest.mark.parametrize("grid", GRIDS)
+def test_kernel_model_ranks_match_width_cumsum(grid):
+    """The CTAs' rows equal the width-grouped layout's (the plain
+    decoder's offsets), at several alignments of the meta bytes, with
+    order bits set and widths past 16 (which count as width 0)."""
     rng = np.random.default_rng(8)
-    w = rng.integers(0, 17, 3000)
-    w[1000:1200] = 5                    # runs across warps and tiles
-    rank, totals = _model_ranks(w)
-    onehot = np.eye(17, dtype=np.int64)[w]
-    want = (np.cumsum(onehot, 0) - onehot)[np.arange(len(w)), w]
-    np.testing.assert_array_equal(rank, want)
-    np.testing.assert_array_equal(totals, onehot.sum(0))
+    meta = rng.integers(0, 256, 3000).astype(np.uint8)
+    meta[1000:1200] = 5 | (2 << 5)      # runs across warps and tiles
+    w = torch.from_numpy(meta.astype(np.int64) & 0x1F)
+    w = torch.where(w > 16, torch.zeros_like(w), w)
+    want = codec._bits_offsets(w).numpy() // 32
+    keep = w.numpy() > 0                # width 0 has no pool bytes
+    for align in (0, 3, 8, 13):
+        rows = _model_rows(meta, grid, align)
+        np.testing.assert_array_equal(rows[keep], want[keep])
+
+
+@pytest.mark.parametrize("n,align", [(0, 0), (1, 5), (15, 1), (17, 0),
+                                     (4099, 7), (300_000, 3)])
+def test_kernel_model_width_sweep(n, align):
+    """The sweep's register counters equal histograms of the widths 1..16
+    before and from ``start`` over every meta byte value, with ``start``
+    on and off a vector boundary, the longest past the byte fields'
+    drain."""
+    meta = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    w = meta & 0x1F
+    for start in sorted({0, min(n, 7), n // 2, n // 2 + 8, n}):
+        got = _model_count_widths(meta, start, align)
+        for part, g in zip((w[:start], w[start:]), got):
+            want = np.bincount(part[(part >= 1) & (part <= 16)],
+                               minlength=17)
+            want[0] = 0
+            np.testing.assert_array_equal(g, want)
+
+
+def _elide_case(case):
+    """An elision buffer -> (buf, nb, source or None): pack_zero_elide of
+    a signal, or a seeded pool with a mask of each kind (2,051 blocks: no
+    grid's range length divides it)."""
+    if case == "packed":
+        sig = _sig("elide")
+        return codec.pack_zero_elide(sig), len(sig) // BLOCK, sig
+    rng = np.random.default_rng(51)
+    nb, n_rows = 2051, 5 * PAGE
+    mask = {"all_zero": np.zeros(nb), "all_one": np.ones(nb),
+            "alternating": np.arange(nb) % 2,
+            "values": rng.integers(-1, 4, nb)}[case].astype(np.int16)
+    pool = rng.integers(-32768, 32768, n_rows * BLOCK).astype(np.int16)
+    return np.concatenate([pool, mask]), nb, None
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("case", ["packed", "all_zero", "all_one",
+                                  "alternating", "values"])
+def test_kernel_model_elide_matches_plain(case, grid):
+    """The CUDA elision decoder, modelled at a grid of ``grid`` CTAs,
+    equals the plain decoder and the JAX decoder (and the source where
+    there is one): masks all zero, all one, alternating, general values
+    (the carry sums values, the copy multiplies), rows past the pool."""
+    buf, nb, sig = _elide_case(case)
+    got = _model_unpack_zero_elide(buf, nb, grid)
+    if sig is not None:
+        np.testing.assert_array_equal(got, sig)
+    np.testing.assert_array_equal(
+        got, codec.unpack_zero_elide_plain(torch.from_numpy(buf), nb).numpy())
+    np.testing.assert_array_equal(
+        got, _jax_decode_cached(("elide", case), "elide", buf, nb))
 
 
 def test_every_width_and_order_once():

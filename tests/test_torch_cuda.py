@@ -56,8 +56,11 @@ file).
 
 The upload codec: both decode kernels (``csrc/codec.cu``) bit-equal to
 their plain versions on every content class of tests/test_torch_codec.py,
-a seeded fuzz, one block at each width and order, an all-zero slice and a
-decode into a slice of a larger buffer; bad buffers raise before any
+a seeded fuzz, one block at each width and order, an all-zero slice, a
+decode into a slice of a larger buffer, the 1 h size (180,000 blocks),
+grids of more CTAs than blocks (1, 2 and 33 blocks), a buffer and an
+output 2 bytes past a 16-byte boundary, two streams at once, and no host
+sync (``set_sync_debug_mode("error")``); bad buffers raise before any
 launch; with ``ISS_UPLOAD_CODEC=1`` the frontend's features (whole-file
 and group launches), the kept PCM and the Segmenter's labels equal the
 raw upload's, the pinned group upload stays free of host syncs, and the
@@ -1221,6 +1224,163 @@ def test_codec_kernels_reject_bad_buffers(dev):
         with pytest.raises(ValueError):
             fn(x, nb, out=torch.empty(nb * 320, dtype=torch.int16))
         assert fn.launches == before
+
+
+def _codec_hour(seed=60):
+    """A 1 h int16 signal (180,000 codec blocks) of seeded block classes:
+    noise at log-uniform scales (every width), tones (orders 1 and 2) and
+    10% digital silence (elision keeps 90% of the blocks)."""
+    rng = np.random.default_rng(seed)
+    nb = 180_000
+    scale = np.exp(rng.uniform(0.0, np.log(20000.0), nb))[:, None]
+    x = rng.standard_normal((nb, 320)).astype(np.float32) * scale
+    tone = rng.random(nb) < 0.3
+    x[tone] = (np.sin(np.arange(320)[None, :] * rng.uniform(
+        0.01, 0.3, (int(tone.sum()), 1))) * scale[tone]).astype(np.float32)
+    x[rng.random(nb) < 0.1] = 0
+    return np.clip(np.rint(x), -32768, 32767).astype(np.int16).reshape(-1)
+
+
+def _codec_decoders():
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    return {"bits": (codec.pack_bits, codec.unpack_bits,
+                     codec.unpack_bits_plain, 5),
+            "elide": (codec.pack_zero_elide, codec.unpack_zero_elide,
+                      codec.unpack_zero_elide_plain, 1)}
+
+
+@pytest.mark.parametrize("kind", ["bits", "elide"])
+def test_codec_kernels_at_one_hour(dev, kind):
+    """The 1 h size (180,000 blocks, a grid of the card's persistent size):
+    one launch, bit-equal to the plain version and the source."""
+    pack, fn, plain, _ = _codec_decoders()[kind]
+    sig = _codec_hour()
+    nb = len(sig) // 320
+    buf = pack(sig, min_save=-1.0) if kind == "bits" else pack(sig)
+    x = torch.from_numpy(buf).to(dev)
+    before = fn.launches
+    got = fn(x, nb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, plain(x, nb))
+    np.testing.assert_array_equal(got.cpu().numpy(), sig)
+
+
+@pytest.mark.parametrize("kind", ["bits", "elide"])
+@pytest.mark.parametrize("nb", [1, 2, 33])
+def test_codec_kernels_grid_past_nb(dev, kind, nb):
+    """Grids of more CTAs than blocks (CTAs with empty ranges, ranges of
+    one block) through the C entry point, against the plain version."""
+    from inaspeechsegmenter_tpu_torch.utils import cuda_build
+    from torch_parity_helpers import fuzz_signal
+
+    pack, _, plain, tail = _codec_decoders()[kind]
+    sig = fuzz_signal(700 + nb, nb=nb)
+    sig[:320] = 0                         # a silent first block
+    if kind == "bits":                    # a pool page past any saving
+        buf = pack(sig, min_save=-1e6)
+    else:                                 # pack_zero_elide's layout; it
+        blocks = sig.reshape(nb, 320)     # saves no page at these sizes
+        keep = blocks.any(1)
+        buf = np.zeros(512 * 320 + nb, np.int16)
+        buf[:int(keep.sum()) * 320] = blocks[keep].reshape(-1)
+        buf[512 * 320:] = keep
+    x = torch.from_numpy(buf).to(dev)
+    want = plain(x, nb)
+    lib = cuda_build.library()
+    entry = lib.iss_unpack_bits if kind == "bits" else \
+        lib.iss_unpack_zero_elide
+    pool = len(buf) - tail * nb
+    pool = pool if kind == "bits" else pool // 320
+    for grid in (nb + 1, 132, 264):
+        out = torch.full((nb * 320,), 7, dtype=torch.int16, device=dev)
+        rc = entry(x.data_ptr(), pool, nb, out.data_ptr(), grid,
+                   torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), grid
+    np.testing.assert_array_equal(want.cpu().numpy(), sig)
+
+
+@pytest.mark.parametrize("kind", ["bits", "elide"])
+def test_codec_kernels_unaligned_buffer_and_out(dev, kind):
+    """A buffer and an output that start 2 bytes past a 16-byte boundary
+    (the kernel's scalar accesses), each alone and both, bit-equal to the
+    plain version and the source."""
+    pack, fn, plain, _ = _codec_decoders()[kind]
+    sig = _codec_cases()["elide" if kind == "elide" else "mixed"]
+    nb = len(sig) // 320
+    buf = pack(sig, min_save=-1.0) if kind == "bits" else pack(sig)
+    x = torch.from_numpy(buf).to(dev)
+    assert x.data_ptr() % 16 == 0
+    shift = 2 // x.element_size()         # elements in 2 bytes
+    big = torch.zeros(len(buf) + 16, dtype=x.dtype, device=dev)
+    xs = big[shift:shift + len(buf)]
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 == 2
+    want = plain(x, nb)
+    for src in (x, xs):
+        for off in (0, 1):
+            outs = torch.full((nb * 320 + 2,), 7, dtype=torch.int16,
+                              device=dev)
+            out = outs[off:off + nb * 320]
+            assert fn(src, nb, out=out) is out
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (src.data_ptr() % 16, off)
+            assert (outs[:off] == 7).all() and (outs[off + nb * 320:] == 7
+                                                ).all()
+    np.testing.assert_array_equal(want.cpu().numpy(), sig)
+
+
+def test_codec_kernels_make_no_host_sync(dev):
+    """Both decoders, into a new output and into a given one, under
+    ``set_sync_debug_mode("error")``: the wrappers allocate nothing but
+    the output and never synchronise."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    cases = _codec_cases()
+    bits = torch.from_numpy(codec.pack_bits(cases["mixed"],
+                                            min_save=-1.0)).to(dev)
+    elide = torch.from_numpy(codec.pack_zero_elide(cases["elide"])).to(dev)
+    nbb, nbe = len(cases["mixed"]) // 320, len(cases["elide"]) // 320
+    out = torch.empty(nbe * 320, dtype=torch.int16, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = codec.unpack_bits(bits, nbb)
+        b = codec.unpack_zero_elide(elide, nbe, out=out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, codec.unpack_bits_plain(bits, nbb))
+    assert torch.equal(b, codec.unpack_zero_elide_plain(elide, nbe))
+
+
+def test_codec_kernels_on_two_streams(dev):
+    """The same inputs decoded on two streams at once, each decoder on
+    each: every result bit-equal to the plain version."""
+    from inaspeechsegmenter_tpu_torch.dsp import codec
+
+    cases = _codec_cases()
+    inputs = [(codec.unpack_bits, codec.unpack_bits_plain,
+               torch.from_numpy(codec.pack_bits(
+                   cases["speechlike"], min_save=-1.0)).to(dev),
+               len(cases["speechlike"]) // 320),
+              (codec.unpack_zero_elide, codec.unpack_zero_elide_plain,
+               torch.from_numpy(codec.pack_zero_elide(
+                   cases["elide"])).to(dev), len(cases["elide"]) // 320)]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    got = []
+    for rep in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append([fn(x, nb) for fn, _, x, nb in inputs])
+    torch.cuda.synchronize()
+    for res in got:
+        for (_, plain, x, nb), g in zip(inputs, res):
+            assert torch.equal(g, plain(x, nb))
 
 
 @pytest.mark.parametrize("chunks", ["1", "3"])
