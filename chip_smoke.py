@@ -62,7 +62,16 @@ Phases, each fatal on failure (non-zero exit, no final line):
    offline VAD timelines are equal); and the force-commit disagreement: a
    15 min mix with no inserted silence, ``COMMIT_MAXBACK = 16``, the frames
    of the committed prefix that differ from ``finalize()`` and the forced
-   commits;
+   commits; (b) the streaming switch: ``segment_signal`` on the 60 s and
+   10 min mixes fused (``ISS_STREAMING=0``), streamed (``=1``) and
+   streamed with the gender emissions a chunk (``ISS_STREAM_GENDER=1``),
+   in 3 turns (warm walls; 0 frames may differ from fused; launches
+   against the routing: one features launch a file fused, one an upload
+   group streamed, 3 K <= 3 decodes), the VFS tuple of the 10 min mix
+   with ``ISS_STREAMING=1`` equal to the fused VAD's, and
+   ``OnlineSegmenter`` over the 10 min mix under ``ISS_STREAMING=0`` (a
+   passthrough) and under ``ISS_STREAM_GENDER=1``: ``finalize()`` equal
+   to ``segment_signal``'s labels;
 5. real inputs: (a) the full-width synthetic set written as Keras ``.hdf5``
    files (the Keras 2 layout, by ``tests/torch_parity_helpers.write_h5``,
    numpy only) and the Segmenter and VFS scorer built from them: the
@@ -181,17 +190,22 @@ Phases, each fatal on failure (non-zero exit, no final line):
 10. the installed package: (a) the checkout's wheel (``pip wheel --no-deps
    --no-build-isolation``, then ``pip install --no-deps --no-index
    --target``; a host without setuptools fails the phase), the wheel and
-   the setuptools version printed; (b) ``tools.prewarm`` run from the
+   the setuptools version printed; the constructor guard's probe
+   (``utils.env.probe_device``, 3 walls) and ``nvcc``'s release line as
+   the kernel cache's scope reads it; (b) ``tools.prewarm`` run from the
    install (``PYTHONPATH`` the target only, the working directory outside
    the checkout, an empty ``ISS_TORCH_BUILD_DIR``): the package imported
    from the target, the cold kernel build's seconds; (c) the installed
    ``ina_speech_segmenter_torch`` console script (``-b none``, the default
-   device) on the 60 s and 10 min WAVs, once plain (the first-request
-   wall) and once with ``ISS_TRACE_DIR`` set: csvs byte-equal to phase
+   device) on the 60 s and 10 min WAVs, plain (the first-request wall;
+   the 10 min WAV with the constructor guard and without it,
+   ``ISS_CTOR_LINK_WAIT=0``, in turns, two of each), then once with
+   ``ISS_TRACE_DIR`` set: csvs byte-equal to phase
    2's, the build directory's files and mtimes unchanged (nothing
    rebuilt), both path kernels named in each trace, each wall printed;
    (d-g) one runner process on the install: its start-up split (the
-   interpreter, the ``torch`` import, the port's import, the CUDA context,
+   interpreter, the ``torch`` import, the port's import, the constructor
+   guard cold and latched, the CUDA context,
    the Segmenter's construction, the first 10 min file), the 10 min
    WAV's kernel launches (1 features, 3 K <= 3 Viterbi, 0 general), phase
    6(f)'s 44.1 kHz WAV without ffmpeg (labels equal to 6(f)'s, the native
@@ -226,7 +240,14 @@ Phases, each fatal on failure (non-zero exit, no final line):
    frames); (c) ``ISS_FRONTEND=host`` on the 60 s and 10 min WAVs (frames
    differing from the kernel frontend's, at most 0.1%), ``vfs(mix60)``
    with the host frontend, the link probe's MB/s and what ``auto`` takes
-   on this host.
+   on this host;
+12. multi-host on one card: two rank processes (each with its own
+   timeout) join one ``gloo`` process group on 127.0.0.1 through
+   ``parallel.init_multihost`` (NCCL refuses two ranks on one card); an
+   ``all_reduce`` of the ranks sums to 1; rank r segments phase 2's 60 s
+   (r = 0) or 10 min (r = 1) WAV on the card into a csv byte-equal to
+   phase 2's ``batch_process`` csv, with one features launch and three
+   decodes.  A failure in any rank fails the run.
 
 Each kernel's row times it twice: ``device_ms``, its own device time
 (``torch.profiler``'s kernel durations over distinct inputs that together
@@ -238,11 +259,12 @@ each call after a spinning kernel, and ``device_by`` says which) and
 ``floor_ms`` is a near-empty kernel's device time under the same measure.
 
 The lines before the last are a JSON object of the kernels (launches
-summed over the main-path runs of phases 2-11, launches per file for
+summed over the main-path runs of phases 2-12, launches per file for
 segmentation, VFS, the online segmenter, the ffmpeg decode, each run
 of phase 6, phase 7's train and farm paths, phase 8's engine batch,
 sharded file and mesh VFS runs, phase 9's runs of each schedule,
-phase 10's installed 10 min file and phase 11's codec runs,
+phase 10's installed 10 min file, phase 11's codec runs, phase 4(b)'s
+fused and streamed runs and phase 12's ranks,
 ``bound_ms``: the larger of the bytes over 3.35 TB/s and the operations
 over 67 TFLOP/s fp32) and the card's name and power limit; the last line
 is the JSON result.  Every time is on the card that line names.  Imports
@@ -1304,7 +1326,126 @@ def phase_online(torch, dev, workdir, seg, vfs, files, wavs):
         f"finalize() (first at frames {first})")
     n_diff, n_fr = frames_differ(final, seg.segment_signal(sig900))
     check(n_diff <= 0.001 * n_fr, "online finalize differs on >0.1% (15 min)")
-    return per_file
+    return per_file, phase_streaming_switch(torch, seg, vfs, files)
+
+
+STREAM_MODES = (
+    ("fused", {"ISS_STREAMING": "0", "ISS_STREAM_GENDER": "0"}),
+    ("streamed", {"ISS_STREAMING": "1", "ISS_STREAM_GENDER": "0"}),
+    ("streamed+gender", {"ISS_STREAMING": "1", "ISS_STREAM_GENDER": "1"}))
+STREAM_TURNS = 3
+STREAM_ONLINE_BLOCK_SECONDS = 10
+
+
+def upload_group_count(sig):
+    """Features launches of the streaming path on ``sig``: one an upload
+    group of ``ISS_UPLOAD_CHUNKS`` chunks."""
+    from inaspeechsegmenter_tpu_torch.dsp.fe_kernel import upload_chunks
+    from inaspeechsegmenter_tpu_torch.dsp.sidekit import CHUNK, frame_count
+
+    n_chunks = max(1, -(-frame_count(len(sig)) // CHUNK))
+    return -(-n_chunks // upload_chunks())
+
+
+def phase_streaming_switch(torch, seg, vfs, files):
+    """Phase 4(b): ``segment_signal`` on the 60 s and 10 min mixes fused,
+    streamed and streamed with the gender emissions a chunk
+    (``ISS_STREAMING`` / ``ISS_STREAM_GENDER``), in turns; the VFS tuple
+    streamed; ``OnlineSegmenter`` under ``ISS_STREAMING=0`` and under
+    ``ISS_STREAM_GENDER=1``.  -> the launches of each counted run."""
+    from inaspeechsegmenter_tpu_torch import OnlineSegmenter
+
+    t_phase = time.perf_counter()
+    per, lsegs = {}, {}
+    names = ("mix60", "mix600")
+    for name in names:
+        sig = files[name]
+        for mode, env in STREAM_MODES:
+            with env_set(**env):
+                reset_kernel_counts()
+                lsegs[mode, name] = seg.segment_signal(sig)
+                torch.cuda.synchronize()
+                c = kernel_counts()
+            want_fe = 1 if mode == "fused" else upload_group_count(sig)
+            check(without_codec(c) == {"sidekit_fe": want_fe, "viterbi": 3,
+                                       "viterbi_general": 0},
+                  f"{mode} {name}: launches {c}, routing predicts "
+                  f"{want_fe} features launches and 3 decodes")
+            check_codec_launches(c, f"the {mode} {name} run")
+            per[f"{mode}_{name}"] = c
+    walls = {(mode, name): [] for mode, _ in STREAM_MODES for name in names}
+    for turn in range(STREAM_TURNS):
+        order = STREAM_MODES if turn % 2 == 0 else STREAM_MODES[::-1]
+        for mode, env in order:
+            with env_set(**env):
+                for name in names:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = seg.segment_signal(files[name])
+                    torch.cuda.synchronize()
+                    walls[mode, name].append(time.perf_counter() - t0)
+                    check(got == lsegs[mode, name],
+                          f"{mode} {name}: labels changed between runs")
+    for name in names:
+        for mode, _ in STREAM_MODES[1:]:
+            n_diff, n_fr = frames_differ(lsegs[mode, name],
+                                         lsegs["fused", name])
+            log(f"[streaming] {name} {mode} vs fused: {n_diff} of {n_fr} "
+                f"frames differ")
+            check(n_diff == 0, f"{name}: {mode} labels differ from fused")
+        log(f"[streaming] {name} warm segment_signal walls in {STREAM_TURNS} "
+            "turns, s: " + "; ".join(
+                f"{mode} {walls[mode, name]!r} (median "
+                f"{float(np.median(walls[mode, name]))!r})"
+                for mode, _ in STREAM_MODES)
+            + f"; launches {[(m, per[f'{m}_{name}']) for m, _ in STREAM_MODES]}")
+
+    # the VFS tuple with the VAD streamed (its PCM parts feed the VBx grid)
+    sig = files["mix600"]
+    want = vfs.score_signal(sig, "mix600")
+    with env_set(ISS_STREAMING="1"):
+        reset_kernel_counts()
+        got = vfs.score_signal(sig, "mix600")
+        torch.cuda.synchronize()
+        c = kernel_counts()
+    check(got == want, f"VFS streamed {got} != fused {want}")
+    check(without_codec(c) == {"sidekit_fe": upload_group_count(sig),
+                               "viterbi": 2, "viterbi_general": 0},
+          f"VFS streamed launches {c}")
+    per["vfs_streamed_mix600"] = c
+    log(f"[streaming] VFS mix600 with ISS_STREAMING=1: {got} == the fused "
+        f"VAD's; launches {c}")
+
+    # the online segmenter under the streaming switches
+    block = STREAM_ONLINE_BLOCK_SECONDS * SR
+    for label, env in (("ISS_STREAMING=0", {"ISS_STREAMING": "0"}),
+                       ("ISS_STREAM_GENDER=1", {"ISS_STREAM_GENDER": "1"})):
+        with env_set(**env):
+            reset_kernel_counts()
+            online = OnlineSegmenter(seg)
+            polls = 0
+            for pos in range(0, len(sig), block):
+                online.feed(sig[pos:pos + block])
+                if online.chunks_ready >= 2 or pos % (60 * SR) == 0:
+                    online.current()
+                    polls += 1
+            final = online.finalize()
+            torch.cuda.synchronize()
+            c = kernel_counts()
+            offline = seg.segment_signal(sig)
+        n_diff, n_fr = frames_differ(final, offline)
+        log(f"[streaming] OnlineSegmenter mix600 under {label}, "
+            f"{STREAM_ONLINE_BLOCK_SECONDS} s blocks, {polls} polls "
+            f"(passthrough {online._passthrough}): finalize vs the offline "
+            f"labels: {n_diff} of {n_fr} frames differ; launches {c}")
+        check(final == offline, f"online finalize under {label} differs "
+              "from the offline labels")
+        check(online._passthrough == (label == "ISS_STREAMING=0"),
+              f"online passthrough under {label}")
+        check_segmentation_launches(c, f"the online run under {label}")
+        per[f"online_{label}"] = c
+    log(f"[phase 4b] streaming switch: {time.perf_counter() - t_phase!r} s")
+    return per
 
 # --------------------------------------------------------------------------
 CNN_TIER_ATOL = 2e-2            # the JAX package's own tier tolerance
@@ -3095,6 +3236,7 @@ PORT = "inaspeechsegmenter_tpu_torch"
 ENDURANCE_FILES = 16            # two-second WAVs: 8 to warm, then 8 more
 ENDURANCE_MEMORY_SLACK = 1 << 20    # bytes allocated may differ by 1 MiB
 PATH_KERNELS = ("sidekit_fe_kernel", "viterbi_kernel")   # trace names
+GUARD_TURNS_FILE = "mix600"     # console script with and without the guard
 
 INSTALLED_RUNNER = r"""
 import time
@@ -3109,7 +3251,13 @@ from inaspeechsegmenter_tpu_torch.audio import native
 from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
 from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
 from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
+from inaspeechsegmenter_tpu_torch.utils import env as port_env
 marks.append(("port import", time.time()))
+port_env.require_device("runner", "cuda")   # cold: the probe's subprocess
+marks.append(("constructor guard", time.time()))
+t_latched = time.perf_counter()
+port_env.require_device("runner", "cuda")   # latched
+guard_latched_s = time.perf_counter() - t_latched
 
 cfg = json.loads(sys.argv[1])
 wrappers = {"sidekit_fe": fe_kernel.sidekit_features,
@@ -3129,7 +3277,8 @@ def reset():
         w.launches = 0
 
 
-out = {"package": port.__file__, "native_source": native.SOURCE}
+out = {"package": port.__file__, "native_source": native.SOURCE,
+       "guard_latched_s": guard_latched_s}
 torch.cuda.init()
 torch.empty(1, device="cuda")
 torch.cuda.synchronize()
@@ -3274,21 +3423,45 @@ def phase_installed(torch, dev, workdir, files, wavs, models, resampled):
           and any(n.startswith("libissaudio_") for n in built),
           f"prewarm left {sorted(built)}")
 
+    # the constructor guard's probe on the card, and the toolkit's release
+    # line in the kernel cache's scope
+    from inaspeechsegmenter_tpu_torch.utils import cuda_build
+    from inaspeechsegmenter_tpu_torch.utils import env as port_env
+
+    probes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        answer = port_env.probe_device(dev)
+        probes.append(time.perf_counter() - t0)
+        check(answer is True, f"the guard's probe answered {answer}")
+    log(f"[installed] constructor guard: probe_device({dev}) walls "
+        f"{probes!r} s (a subprocess: libcuda, cuInit, a primary context); "
+        f"nvcc release line in the kernel cache's scope "
+        f"{cuda_build.nvcc_release()!r}")
+
     # (c) the console script on the 60 s and 10 min WAVs, plain (the
-    # first-request wall), then traced
+    # first-request wall, the guard's probe included), then traced
     script = os.path.join(target, "bin", "ina_speech_segmenter_torch")
     names = list(files)
     for name in ("mix60", "mix600"):
         wav = wavs[names.index(name)]
         trace = os.path.join(base, "trace_" + name)
         walls, statuses = {}, {}
-        for run, run_env in (("plain", env),
-                             ("traced", {**env, "ISS_TRACE_DIR": trace})):
-            odir = os.path.join(base, f"out_{run}_{name}")
+        # the 10 min file plain with the constructor guard and without it
+        # (ISS_CTOR_LINK_WAIT=0) in turns; each file once traced
+        no_guard = {**env, "ISS_CTOR_LINK_WAIT": "0"}
+        runs = [("plain", env)]
+        if name == GUARD_TURNS_FILE:
+            runs += [("no_guard", no_guard), ("no_guard", no_guard),
+                     ("plain", env)]
+        runs.append(("traced", {**env, "ISS_TRACE_DIR": trace}))
+        for i, (run, run_env) in enumerate(runs):
+            odir = os.path.join(base, f"out_{run}{i}_{name}")
             os.makedirs(odir)
-            out, walls[run] = run_installed(
+            out, wall = run_installed(
                 [sys.executable, script, "-i", wav, "-o", odir, "-b",
                  "none"], run_env, cwd, "ina_speech_segmenter_torch")
+            walls.setdefault(run, []).append(wall)
             # "1/1 [(dst, 0, 'ok <s>')]"
             statuses[run] = out.strip().splitlines()[-1]
             with open(os.path.join(odir, name + ".csv"), "rb") as a, \
@@ -3305,8 +3478,11 @@ def phase_installed(torch, dev, workdir, files, wavs, models, resampled):
               f"{name}: the console script rebuilt: {build_state(build)}")
         size = os.path.getsize(os.path.join(trace, "trace.json"))
         log(f"[installed] ina_speech_segmenter_torch {name} "
-            f"({len(files[name]) / SR!r} s of audio): wall {walls['plain']!r}"
-            f" s plain, {walls['traced']!r} s with ISS_TRACE_DIR set (batch "
+            f"({len(files[name]) / SR!r} s of audio): walls {walls['plain']!r}"
+            f" s plain with the constructor guard, "
+            f"{walls.get('no_guard', [])!r} s without it "
+            f"(ISS_CTOR_LINK_WAIT=0), in turns; "
+            f"{walls['traced']!r} s with ISS_TRACE_DIR set (batch "
             f"statuses {statuses}), csvs byte-equal to phase 2's, no "
             f"rebuild, trace.json {size} B with kernels {found}")
 
@@ -3328,8 +3504,9 @@ def phase_installed(torch, dev, workdir, files, wavs, models, resampled):
           f"the runner rebuilt: {build_state(build)}")
     launches = res["launches"]
     log(f"[installed] runner wall {wall!r} s; its start-up, seconds from "
-        f"the mark before: {res['start_up']}; mix600 kernel launches "
-        f"{launches}")
+        f"the mark before: {res['start_up']} (the constructor guard: its "
+        f"cold probe; latched {res['guard_latched_s']!r} s); mix600 kernel "
+        f"launches {launches}")
     check(without_codec(launches) == {"sidekit_fe": 1, "viterbi": 3,
                                       "viterbi_general": 0},
           f"installed mix600 launches {launches}")
@@ -3835,6 +4012,126 @@ def phase_codec(torch, dev, workdir, seg, vfs, files, wavs, models):
     return entries, per
 
 
+# --------------------------------------------------------------------------
+MULTIHOST_TIMEOUT = 300         # seconds a rank process may take
+MULTIHOST_FILES = ("mix60", "mix600")   # rank r segments file r
+
+MULTIHOST_RANK = r"""
+import json, sys, time
+t0 = time.time()
+import torch
+import torch.distributed as dist
+from inaspeechsegmenter_tpu_torch import Segmenter
+from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
+from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
+from inaspeechsegmenter_tpu_torch.export import seg2csv
+from inaspeechsegmenter_tpu_torch.parallel import global_mesh, init_multihost
+
+cfg = json.loads(sys.argv[1])
+rank = cfg["rank"]
+ok = init_multihost(cfg["address"], cfg["world"], rank, device="cuda")
+x = torch.tensor([float(rank)])
+dist.all_reduce(x)
+mesh = global_mesh()
+wrappers = {"sidekit_fe": fe_kernel.sidekit_features,
+            "viterbi": tv.viterbi_scan,
+            "viterbi_general": tv.viterbi_scan_general,
+            "unpack_bits": codec.unpack_bits,
+            "unpack_zero_elide": codec.unpack_zero_elide}
+seg = Segmenter("smn", True, ffmpeg=None, model_dir=cfg["models"],
+                allow_download=False)
+for w in wrappers.values():
+    w.launches = 0
+seg2csv(seg(cfg["wav"]), cfg["csv"])
+torch.cuda.synchronize()
+launches = {k: w.launches for k, w in wrappers.items()}
+dist.barrier()
+out = {"rank": rank, "init": ok, "sum": float(x[0]),
+       "backend": dist.get_backend(), "world": dist.get_world_size(),
+       "device": str(seg.device), "current_device": torch.cuda.current_device(),
+       "mesh": [str(d) for d in mesh.devices.flat], "launches": launches,
+       "wall": time.time() - t0}
+dist.destroy_process_group()
+print("RANK " + json.dumps(out), flush=True)
+"""
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost(workdir, files, wavs, models):
+    """Phase 12: ``init_multihost`` on one card: two rank processes join
+    one ``gloo`` group on 127.0.0.1 (NCCL refuses two ranks on one card),
+    an ``all_reduce`` of the ranks sums to 1, and each rank segments one
+    WAV on the card into a csv byte-equal to phase 2's
+    ``Segmenter.batch_process`` csv.  A rank that fails or outlives
+    ``MULTIHOST_TIMEOUT`` fails the phase.  -> the ranks' summed launches."""
+    t_phase = time.perf_counter()
+    odir = os.path.join(workdir, "multihost")
+    os.makedirs(odir)
+    names = list(files)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                        "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["PYTHONPATH"] = ROOT + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    address = f"127.0.0.1:{free_port()}"
+    procs = []
+    for rank, name in enumerate(MULTIHOST_FILES):
+        cfg = {"rank": rank, "world": len(MULTIHOST_FILES),
+               "address": address, "models": models,
+               "wav": wavs[names.index(name)],
+               "csv": os.path.join(odir, name + ".csv")}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MULTIHOST_RANK, json.dumps(cfg)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=ROOT))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTIHOST_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "RANK " not in out:
+            log(out[-4000:])
+        check(p.returncode == 0, f"multihost rank {rank} exited "
+              f"{p.returncode}")
+        results.append(json.loads(out.split("RANK ", 1)[1]))
+    total = {}
+    for r, name in zip(results, MULTIHOST_FILES):
+        check(r["init"] is True and r["world"] == 2 and r["sum"] == 1.0
+              and r["backend"] == "gloo",
+              f"rank {r['rank']}: init {r['init']}, world {r['world']}, "
+              f"all_reduce {r['sum']}, backend {r['backend']}")
+        with open(os.path.join(odir, name + ".csv"), "rb") as a, \
+                open(os.path.join(workdir, "out", name + ".csv"), "rb") as b:
+            check(a.read() == b.read(), f"rank {r['rank']}: {name}.csv "
+                  "differs from phase 2's batch_process csv")
+        check(without_codec(r["launches"]) == {
+            "sidekit_fe": 1, "viterbi": 3, "viterbi_general": 0},
+            f"rank {r['rank']} launches {r['launches']}")
+        check_codec_launches(r["launches"], f"rank {r['rank']}")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+        log(f"[multihost] rank {r['rank']} of {r['world']} ({r['backend']} "
+            f"on {address}, device {r['device']}, current device "
+            f"{r['current_device']}, mesh {r['mesh']}): all_reduce of the "
+            f"ranks {r['sum']!r}; {name}.csv byte-equal to phase 2's; "
+            f"launches {r['launches']}; process wall {r['wall']!r} s")
+    log(f"[phase 12] multihost: {time.perf_counter() - t_phase!r} s")
+    return total
+
+
 def main():
     import torch
 
@@ -3870,12 +4167,13 @@ def main():
             torch, dev, workdir)
         vfs, params, launches_vfs, per_vfs_file, speech_rate = phase_vfs(
             torch, dev, workdir, files, wavs, models)
-        per_online_file = phase_online(torch, dev, workdir, seg, vfs, files,
-                                       wavs)
+        per_online_file, per_streaming = phase_online(
+            torch, dev, workdir, seg, vfs, files, wavs)
         launches_real, per_ffmpeg_file = phase_real_inputs(
             torch, dev, workdir, seg, vfs, params, files, wavs, models)
         general, per_ref, resampled = phase_reference(
             torch, dev, workdir, seg, vfs, files, wavs, models, speech_rate)
+        per_ref.update(per_streaming)
         per_ref.update(phase_train_score_farm(torch, dev, workdir, seg,
                                               files, wavs, models))
         per_ref.update(phase_engine(torch, dev, workdir, seg, vfs, params,
@@ -3886,6 +4184,7 @@ def main():
         codec_entries, per_codec = phase_codec(torch, dev, workdir, seg, vfs,
                                                files, wavs, models)
         per_ref.update(per_codec)
+        per_ref["multihost"] = phase_multihost(workdir, files, wavs, models)
     kernels.append(general)
     kernels += codec_entries
     for k in kernels:
@@ -3895,7 +4194,7 @@ def main():
         k["launches_per_file"] = {
             path: counts[name]
             for path, counts in {**earlier, **per_ref}.items()}
-        # the main-path runs of phases 2-11 (the kernels' comparisons with
+        # the main-path runs of phases 2-12 (the kernels' comparisons with
         # their plain versions excluded)
         k["launches"] = sum(c[name] for c in (
             launches, launches_vfs, per_online_file, launches_real,

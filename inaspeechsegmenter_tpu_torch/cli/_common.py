@@ -1,6 +1,15 @@
-"""Shared CLI helpers for the segmentation and VFS commands."""
+"""Shared CLI helpers and bootstrap for the port's commands: the
+counterpart of ``inaspeechsegmenter_tpu/cli/_common.py``.
+
+``expand_inputs`` and ``check_outdir`` raise ``ValueError`` with the JAX
+helpers' messages where those assert (an assert is stripped under
+``python -O``); the CLIs turn it into ``parser.error``, exit status 2.
+"""
 
 from __future__ import annotations
+
+import glob
+import os
 
 
 def resolve_ffmpeg(name):
@@ -11,6 +20,46 @@ def resolve_ffmpeg(name):
               'sampled at 16kHz.')
         return None
     return name
+
+
+def expand_inputs(patterns, allow_urls=False):
+    """Glob expansion keeping http urls verbatim when allowed (reference
+    scripts/ina_speech_segmenter.py:62-68) -> the files; none raises
+    ``ValueError``."""
+    files = []
+    for e in patterns:
+        if allow_urls and e.startswith('http'):
+            files.append(e)
+        else:
+            files += glob.glob(e)
+    if not files:
+        raise ValueError('No existing media selected for analysis! Bad '
+                         'values provided to -i (%s)' % patterns)
+    return files
+
+
+def check_outdir(output_directory):
+    """The output directory stripped of blanks and a trailing '/'; one
+    that is not writable raises ``ValueError``."""
+    odir = output_directory.strip(' \t\n\r').rstrip('/')
+    if not os.access(odir, os.W_OK):
+        raise ValueError('Directory %s is not writable!' % odir)
+    return odir
+
+
+def output_paths(input_files, odir, ext):
+    return [os.path.join(odir,
+                         os.path.splitext(os.path.basename(e))[0] + '.' + ext)
+            for e in input_files]
+
+
+def bootstrap_runtime():
+    """Make the kernel cache's directory (``utils.cache``) before any
+    model is built -> its path.  The JAX function also pins the JAX
+    platform; the port's device is each CLI's ``--device``."""
+    from ..utils.cache import enable_kernel_cache
+
+    return enable_kernel_cache()
 
 
 def exit_status(result):

@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ._common import parallel_mesh, resolve_ffmpeg
+from ._common import bootstrap_runtime, parallel_mesh, resolve_ffmpeg
 
 
 def main(argv=None):
@@ -43,6 +43,8 @@ def main(argv=None):
                         help="Torch device, 'cuda' (default) or 'cpu'.")
     args = parser.parse_args(argv)
     ffmpeg = resolve_ffmpeg(args.ffmpeg_binary)
+    # a restarted worker finds the kernels it built before
+    bootstrap_runtime()
 
     from inaspeechsegmenter_tpu_torch.parallel import client_work_loop
 

@@ -22,12 +22,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import glob
 import os
 import sys
 import warnings
 
-from ._common import exit_status, parallel_mesh, resolve_ffmpeg
+from ._common import (bootstrap_runtime, check_outdir, exit_status,
+                      expand_inputs, output_paths, parallel_mesh,
+                      resolve_ffmpeg)
 
 description = (
     "Segment media files into speech/music(/noise) regions, optionally "
@@ -85,16 +86,13 @@ def main(argv=None):
         # the followed recording may not exist YET (a recorder about to
         # start writing): no glob expansion
         input_files = list(args.input)
-    else:
-        input_files = []
-        for e in args.input:
-            input_files += [e] if e.startswith('http') else glob.glob(e)
-    if not input_files:
-        parser.error('No existing media selected for analysis! Bad values '
-                     'provided to -i (%s)' % args.input)
-    odir = args.output_directory.strip(' \t\n\r').rstrip('/')
-    if not os.access(odir, os.W_OK):
-        parser.error('Directory %s is not writable!' % odir)
+    try:
+        if not args.follow:
+            input_files = expand_inputs(args.input, allow_urls=True)
+        odir = check_outdir(args.output_directory)
+    except ValueError as e:
+        parser.error(str(e))
+    bootstrap_runtime()
 
     from inaspeechsegmenter_tpu_torch import Segmenter
 
@@ -102,9 +100,7 @@ def main(argv=None):
                     detect_gender=args.detect_gender.lower() == 'true',
                     ffmpeg=ffmpeg, energy_ratio=args.energy_ratio,
                     batch_size=args.batch_size, device=args.device)
-    output_files = [
-        os.path.join(odir, os.path.splitext(os.path.basename(e))[0] + '.'
-                     + args.export_format) for e in input_files]
+    output_files = output_paths(input_files, odir, args.export_format)
     trace_dir = os.environ.get('ISS_TRACE_DIR')
     if trace_dir:
         from inaspeechsegmenter_tpu_torch.utils.timing import torch_trace

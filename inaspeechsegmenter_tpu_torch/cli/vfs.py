@@ -20,12 +20,12 @@ nb_vectors``; model weights are resolved by ``models.registry``.
 from __future__ import annotations
 
 import argparse
-import glob
-import os
 import sys
 import warnings
 
-from ._common import exit_status, parallel_mesh, resolve_ffmpeg
+from ._common import (bootstrap_runtime, check_outdir, exit_status,
+                      expand_inputs, output_paths, parallel_mesh,
+                      resolve_ffmpeg)
 
 description = (
     "Score voice femininity of media files: x-vector speaker embeddings "
@@ -86,16 +86,13 @@ def main(argv=None):
                          '(a live tail always writes its csv at finalize)')
         # the followed recording may not exist YET: no glob expansion
         input_files = list(args.input)
-    else:
-        input_files = []
-        for e in args.input:
-            input_files += glob.glob(e)
-    if not input_files:
-        parser.error('No existing media selected for analysis! Bad values '
-                     'provided to -i (%s)' % args.input)
-    odir = args.output_directory.strip(' \t\n\r').rstrip('/')
-    if not os.access(odir, os.W_OK):
-        parser.error('Directory %s is not writable!' % odir)
+    try:
+        if not args.follow:
+            input_files = expand_inputs(args.input, allow_urls=True)
+        odir = check_outdir(args.output_directory)
+    except ValueError as e:
+        parser.error(str(e))
+    bootstrap_runtime()
 
     from inaspeechsegmenter_tpu_torch import vfs
 
@@ -109,9 +106,7 @@ def main(argv=None):
     scorer = vfs.VoiceFemininityScoring(
         gd_model_criteria=args.gd_model_criteria, ffmpeg=ffmpeg, mesh=mesh,
         device=args.device)
-    output_files = [
-        os.path.join(odir, os.path.splitext(os.path.basename(e))[0] + '.csv')
-        for e in input_files]
+    output_files = output_paths(input_files, odir, 'csv')
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')
         if args.follow:

@@ -147,3 +147,22 @@ def install_synthetic_models(directory, seed=0, size="full"):
     with open(manifest_path, "w") as fh:
         json.dump(want, fh)
     return directory
+
+
+def ensure_synthetic_env(size="full"):
+    """Shared bootstrap for benches and tools: install the synthetic
+    stand-ins into the port's own user cache,
+    ``${XDG_CACHE_HOME:-~/.cache}/inaspeechsegmenter_tpu_torch/synthetic``
+    (outside the registry's search path: reachable only because
+    ``ISS_TPU_MODEL_DIR`` is pointed at it here), set the variable and
+    return the directory.  A preset ``ISS_TPU_MODEL_DIR`` (real weights,
+    or any chosen directory) is returned untouched, with nothing
+    installed."""
+    pre = os.environ.get("ISS_TPU_MODEL_DIR")
+    if pre:
+        return pre
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.expanduser("~/.cache")
+    d = os.path.join(cache, "inaspeechsegmenter_tpu_torch", "synthetic")
+    install_synthetic_models(d, size=size)
+    os.environ["ISS_TPU_MODEL_DIR"] = d
+    return d

@@ -18,11 +18,14 @@ Guarantees and costs:
   (tests/test_torch_online.py): features come from the frontend's own
   ``group_feats`` (one features launch a group of ``ISS_UPLOAD_CHUNKS``
   chunks, each group's upload through the codec where it is on),
-  chunk emissions from ``pipeline.chunk_emissions`` and the decode from
-  ``pipeline.stream_decode``.  ``Segmenter.segment_signal`` runs the fused
-  path, whose labels equal the streaming path's; on the CUDA device the
-  two run the CNN in batches of other sizes, so equality there is counted
-  in frames (``chip_smoke.py`` phase 4).
+  chunk emissions from ``pipeline.chunk_emissions`` (the gender ones too
+  under ``ISS_STREAM_GENDER=1``, cached a chunk; chunks cached before the
+  switch turned on have none, and the decode then runs the tail's own
+  gender pass) and the decode from ``pipeline.stream_decode``.
+  ``Segmenter.segment_signal`` runs the fused path by default, whose
+  labels equal the streaming path's; on the CUDA device the two run the
+  CNN in batches of other sizes, so equality there is counted in frames
+  (``chip_smoke.py`` phase 4).
 * ``current()`` is PROVISIONAL: the newest chunk's emissions are computed
   without its right halo and the smoothing can revise earlier labels as
   context arrives.  Polls are cached on their exact decode inputs, and
@@ -34,10 +37,11 @@ Guarantees and costs:
   3 chunks, ~123 s by default): a chunk's features are computed when its
   group's samples, plus the 2*HOP lookahead, have been fed, exactly like
   the offline grouping.
-* A frontend without ``group_feats`` (the host frontend,
-  ``dsp/host_fe.py``) makes the object a buffering passthrough: every
-  sample is kept and ``current()`` / ``finalize()`` hand the whole buffer
-  to ``segmenter.segment_signal``, as in the JAX package.
+* ``ISS_STREAMING=0`` (the streaming kill switch), or a frontend without
+  ``group_feats`` (the host frontend, ``dsp/host_fe.py``), makes the
+  object a buffering passthrough: every sample is kept and ``current()``
+  / ``finalize()`` hand the whole buffer to ``segmenter.segment_signal``,
+  as in the JAX package.
 
 ``OnlineVFS`` scores the same way.  An int16 stream on the int16 VBx grid
 (``dsp.vbx.vbx_i16_enabled``: a CUDA device) feeds a
@@ -66,6 +70,7 @@ from .dsp.fe_kernel import upload_chunks
 from .dsp.sidekit import CHUNK, HOP, frame_count
 from .dsp import vbx
 from .dsp.vbx import LC, RC, VbxFrontend, VbxPcmStreamOnline
+from .pipeline import stream_gender_enabled
 from .vfs import STEP, WINLEN, TorchResnetExtractor
 
 _LOG_ZERO = float(np.log(1e-200))
@@ -107,9 +112,12 @@ class OnlineSegmenter:
         self.seg = segmenter
         self.start_sec = start_sec
         self._group = upload_chunks()
-        # a frontend without group computations: buffer everything and
-        # hand the offline path the whole signal
-        self._passthrough = not hasattr(segmenter.frontend, "group_feats")
+        # the streaming kill switch, or a frontend without group
+        # computations: buffer everything and hand the offline path the
+        # whole signal
+        self._passthrough = (
+            os.environ.get("ISS_STREAMING") == "0"
+            or not hasattr(segmenter.frontend, "group_feats"))
         self._dtype = None          # decided by the first feed
         self._pending = None        # materialized samples not yet consumed
         self._tail = []             # fed blocks not yet materialized: feed()
@@ -118,8 +126,8 @@ class OnlineSegmenter:
         self._consumed = 0          # samples dropped from the buffer front
         self._total = 0             # samples fed overall
         self._mels = []             # [(mspec_c, loge_c)] device tensors
-        self._probs = {}            # chunk idx -> final VAD probs
-        self._prov = None           # (mel_count, provisional VAD probs)
+        self._probs = {}            # chunk idx -> final (vad, gender) probs
+        self._prov = None           # ((mel_count, gender), provisional probs)
         self._cur = None            # (decode inputs key, lseg) cache
         self._finalized = None
         self._commit = 0            # chunks whose labels are frozen
@@ -138,6 +146,12 @@ class OnlineSegmenter:
     def chunks_ready(self):
         """Feature chunks computed so far (cheap: no device work)."""
         return len(self._mels)
+
+    @property
+    def _spec_gender(self):
+        """Speculative gender emissions a chunk (``ISS_STREAM_GENDER=1``),
+        read at each use as the JAX package reads it."""
+        return self.seg.detect_gender and stream_gender_enabled()
 
     # -- feeding -----------------------------------------------------------
     def feed(self, pcm):
@@ -227,34 +241,46 @@ class OnlineSegmenter:
 
     # -- emissions ---------------------------------------------------------
     def _chunk_probs(self, c, zero_right=False):
-        """VAD emissions of chunk c, through the halo policy's single owner
-        (`pipeline.chunk_emissions`).  Final emissions (real right halo)
-        are cached per chunk; the provisional zero-right emission is cached
-        per mel count, so polling current() between chunk arrivals
-        launches nothing new."""
+        """(VAD, gender-or-None) emissions of chunk c, through the halo
+        policy's single owner (`pipeline.chunk_emissions`).  Final
+        emissions (real right halo) are cached per chunk; the provisional
+        zero-right emission is cached per mel count and gender switch, so
+        polling current() between chunk arrivals launches nothing new."""
         if not zero_right and c in self._probs:
             return self._probs[c]
-        if zero_right and self._prov is not None \
-                and self._prov[0] == len(self._mels):
+        key = (len(self._mels), self._spec_gender)
+        if zero_right and self._prov is not None and self._prov[0] == key:
             return self._prov[1]
-        pv = self.seg.pipeline.chunk_emissions(self._mels, c,
-                                               zero_right=zero_right)
+        probs = self.seg.pipeline.chunk_emissions(
+            self._mels, c, zero_right=zero_right, gender=self._spec_gender)
         if zero_right:
-            self._prov = (len(self._mels), pv)
+            self._prov = (key, probs)
         else:
-            self._probs[c] = pv
-        return pv
+            self._probs[c] = probs
+        return probs
 
     def _final_probs(self, c):
         if 0 <= c < len(self._mels) - 1 and c not in self._probs:
             self._chunk_probs(c)
 
     # -- decoding ----------------------------------------------------------
+    def _split(self, probs):
+        """[(vad, gender)] -> (vad list, gender list or None).  The gender
+        list is None unless the switch is on and every chunk has its
+        gender part: where ``ISS_STREAM_GENDER`` turned on mid-stream, the
+        chunks cached before have none, and the tail's own gender pass
+        (the same labels) takes over."""
+        pg = [g for _, g in probs]
+        if not self._spec_gender or any(g is None for g in pg):
+            pg = None
+        return [v for v, _ in probs], pg
+
     def _decode(self, mels, probs, n_frames):
         """The streaming tail over whole chunks -> (n20,) numpy label ids."""
         n20 = (n_frames + 1) // 2
-        ids = self.seg.pipeline.stream_decode(mels, probs, n_frames,
-                                              n_frames, n20)
+        pv, pg = self._split(probs)
+        ids = self.seg.pipeline.stream_decode(mels, pv, n_frames, n_frames,
+                                              n20, probs_g=pg)
         return ids.cpu().numpy()
 
     def current(self):
@@ -276,13 +302,13 @@ class OnlineSegmenter:
             # analysis window there is nothing to label yet.
             if frame_count(self._total) == 0:
                 return []
-            key = ("short", self._total)
+            key = ("short", self._total, self._spec_gender)
             if self._cur is None or self._cur[0] != key:
                 self._cur = (key, self.seg.segment_signal(
                     self._materialize(), self.start_sec))
             return list(self._cur[1])
         n = min(frame_count(self._total), m * CHUNK)
-        key = (m, n, self._commit)
+        key = (m, n, self._spec_gender, self._commit)
         if self._cur is None or self._cur[0] != key:
             ids = self._decode_provisional(n)
             lseg = self.seg.ids_to_lseg(ids, self.start_sec)
@@ -290,7 +316,7 @@ class OnlineSegmenter:
             # re-key on the ADVANCED commit: the labels are unchanged by
             # committing, and a stale key would force the very next poll
             # to re-decode for nothing
-            self._cur = ((m, n, self._commit), lseg)
+            self._cur = ((m, n, self._spec_gender, self._commit), lseg)
         return list(self._cur[1])
 
     def _decode_provisional(self, n_frames):
@@ -310,8 +336,9 @@ class OnlineSegmenter:
         e_init = np.full(2, _LOG_ZERO, np.float32)
         e_init[1 if self._commit_act else 0] = 0.0
         ext = (self._ext_stats[0], self._ext_stats[1], e_init)
+        pv, pg = self._split(probs)
         ids_s = self.seg.pipeline.stream_decode(
-            self._mels[c0:], probs, n_suf, n_suf, n20s, ext=ext)
+            self._mels[c0:], pv, n_suf, n_suf, n20s, ext=ext, probs_g=pg)
         return np.concatenate([self._committed_ids, ids_s.cpu().numpy()])
 
     def _advance_commit(self, ids, m):

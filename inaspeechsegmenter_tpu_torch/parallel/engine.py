@@ -26,22 +26,11 @@ import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
-from ..dsp.sidekit import CHUNK
 from ..export import seg2csv, seg2textgrid
+from ..pipeline import bucket_rows
 from ..segmenter import patch_counts
 from ..utils.retry import retry_call
 from .mesh import make_mesh, run_on_slots
-
-
-def bucket_rows(rows):
-    """The JAX package's padded feature-row count for ``rows`` rows: the
-    1.5x chunk-count ladder (1, 2, 4, 6, 9, ...) times CHUNK.  The port
-    pads nothing; the engine groups files by it, as the JAX engine groups
-    its padded arrays by shape."""
-    n, b = max(1, -(-rows // CHUNK)), 1
-    while b < n:
-        b = b * 2 if b < 4 else (b * 3 + 1) // 2
-    return b * CHUNK
 
 
 class ParallelEngine:

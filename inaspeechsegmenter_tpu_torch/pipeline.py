@@ -22,13 +22,24 @@ The streaming path (``chunk_emissions`` / ``stream_decode`` /
 ``CHUNK`` frames: the VAD CNN runs per chunk, on all of its frames, from
 that chunk and ``STREAM_HALO`` mel rows of each neighbour, and a tail
 (energy decode, right-edge repair, VAD decode, gender CNN and decode)
-waits for the whole stream.  The online segmenter (``online.py``) is built
-on it: its ``ext`` suffix decode re-decodes only the chunks after a
-committed prefix.  Labels equal the fused path's
-(tests/test_torch_streaming.py).
+waits for the whole stream.  With ``ISS_STREAM_GENDER=1`` the gender CNN
+also runs per chunk, on the same halo'd rows (speculative: every frame,
+before the VAD decode says which are speech), and the tail only repairs
+its right edge.  ``Segmenter.segment_signal`` (under ``ISS_STREAMING``)
+and the online segmenter (``online.py``) are built on it: the online
+``ext`` suffix decode re-decodes only the chunks after a committed
+prefix.  Labels equal the fused path's (tests/test_torch_streaming.py,
+tests/test_torch_streaming_call.py).
+
+``viterbi_mode`` takes the JAX package's values (``ISS_VITERBI_MODE``:
+``scan``, ``parallel``, ``blocked``); every mode runs the same exact
+decode, whose states equal the JAX ``scan``.  ``bucket_chunks`` /
+``bucket_rows`` are the JAX length ladder, which nothing here pads to.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -42,6 +53,24 @@ from .utils.device import resolve_device
 CNN_CHUNK = 1024  # patches per CNN batch
 EPS = 1e-10
 STREAM_HALO = 40  # mel rows borrowed from each neighbour chunk (>= 2*LPAD + 2)
+VITERBI_MODES = ("scan", "parallel", "blocked")
+
+
+def default_viterbi_mode(device):
+    """``ISS_VITERBI_MODE`` when it is one of ``VITERBI_MODES``; else
+    ``scan`` on the CPU and ``blocked`` on CUDA, the JAX package's choice
+    for its CPU and accelerator backends.  The port's decode is the same
+    exact kernel (or plain version) in every mode."""
+    mode = os.environ.get("ISS_VITERBI_MODE")
+    if mode in VITERBI_MODES:
+        return mode
+    return "scan" if torch.device(device).type == "cpu" else "blocked"
+
+
+def stream_gender_enabled():
+    """``ISS_STREAM_GENDER=1``: the streaming path computes the gender
+    emissions per chunk (default off, as in the JAX package)."""
+    return os.environ.get("ISS_STREAM_GENDER", "0") == "1"
 
 
 def _f32(a, device):
@@ -61,11 +90,24 @@ class FusedPipeline:
 
     :param vad: (model, nmel, n_out, viterbi_arg) for the VAD CNN.
     :param gender: same tuple for the gender CNN, or None.
+    :param viterbi_mode: one of ``VITERBI_MODES`` (None:
+        :func:`default_viterbi_mode`); any other value raises ``KeyError``,
+        as ``decode.viterbi.viterbi_path`` does.  Every mode decodes
+        exactly; the mode is kept as ``viterbi_mode``.
+    :param skip_inactive: run the fused path's CNNs only on the frames
+        their decode reads (True, the default); False runs them on every
+        frame, as the JAX program does without its skip.  Same labels.
     :param device: ``cuda`` by default; without a CUDA device it raises.
     """
 
-    def __init__(self, vad, gender=None, energy_ratio=0.03, device="cuda"):
+    def __init__(self, vad, gender=None, energy_ratio=0.03, viterbi_mode=None,
+                 skip_inactive=True, *, device="cuda"):
         self.device = resolve_device(device)
+        mode = viterbi_mode or default_viterbi_mode(self.device)
+        if mode not in VITERBI_MODES:
+            raise KeyError(mode)
+        self.viterbi_mode = mode
+        self.skip_inactive = skip_inactive
         self._stages = vad, gender, energy_ratio
         self._slots = {}
         self.vad_model, self.vad_nmel, self.vad_nout, vad_arg = vad
@@ -124,11 +166,15 @@ class FusedPipeline:
 
     @torch.no_grad()
     def _cnn_probs(self, model, mspec, n_frames_patch, nmel, nout, inmask):
-        """CNN probabilities of the frames in ``inmask``; 0.5 elsewhere and
-        for non-finite patches."""
+        """CNN probabilities of the frames in ``inmask`` (of every frame
+        without ``skip_inactive``); 0.5 elsewhere and for non-finite
+        patches."""
         probs = torch.full((inmask.shape[0], nout), 0.5, dtype=torch.float32,
                            device=mspec.device)
-        frames = torch.nonzero(inmask).flatten()
+        if self.skip_inactive:
+            frames = torch.nonzero(inmask).flatten()
+        else:
+            frames = torch.arange(inmask.shape[0], device=mspec.device)
         for b0 in range(0, frames.shape[0], CNN_CHUNK):
             idx = frames[b0:b0 + CNN_CHUNK]
             patches, fin = frame_patches(mspec, idx, n_frames_patch, nmel)
@@ -219,37 +265,49 @@ class FusedPipeline:
                                             torch.full_like(p_last, 0.5))
         return probs
 
-    def chunk_emissions(self, chunks, c, zero_right=False):
-        """VAD CNN probabilities (CHUNK/2, n_out) of chunk ``c`` of a
-        per-chunk feature list [(mspec_c, loge_c)]: the ONE owner of the
-        halo policy (the neighbours' STREAM_HALO rows, zero halos at both
-        ends of the stream, the first-chunk replicate), shared by
-        `run_streaming` and the online segmenter, whose finalize() equals
-        the offline labels only if both build the same halos.
+    def chunk_emissions(self, chunks, c, zero_right=False, gender=False):
+        """CNN probabilities of chunk ``c`` of a per-chunk feature list
+        [(mspec_c, loge_c)] -> ``(probs_v (CHUNK/2, n_out), probs_g or
+        None)``: the ONE owner of the halo policy (the neighbours'
+        STREAM_HALO rows, zero halos at both ends of the stream, the
+        first-chunk replicate), shared by `run_streaming`,
+        ``Segmenter.segment_signal`` and the online segmenter, whose
+        finalize() equals the offline labels only if all build the same
+        halos.
 
         :param zero_right: treat ``c`` as the stream frontier (no right
             context yet) even if later chunks exist: the online
             provisional decode.
+        :param gender: also run the gender CNN on the same halo'd rows
+            (the speculative gender emissions; needs a gender stage).
         """
         m_c = chunks[c][0]
         zeros = m_c.new_zeros((STREAM_HALO, m_c.shape[1]))
         prev = chunks[c - 1][0][-STREAM_HALO:] if c else zeros
         nxt = (zeros if zero_right or c + 1 >= len(chunks)
                else chunks[c + 1][0][:STREAM_HALO])
-        return self._chunk_probs(self.vad_model, self.vad_nmel, prev, m_c,
-                                 nxt, c == 0)
+        pv = self._chunk_probs(self.vad_model, self.vad_nmel, prev, m_c, nxt,
+                               c == 0)
+        pg = None
+        if gender:
+            pg = self._chunk_probs(self.g_model, self.g_nmel, prev, m_c, nxt,
+                                   c == 0)
+        return pv, pg
 
     def stream_decode(self, chunks, probs_v, n_frames, n_frames_patch, n20,
-                      ext=None):
+                      ext=None, probs_g=None):
         """The streaming tail over per-chunk features and their VAD
         emissions -> (n20,) int32 label ids.  The ONE owner of the tail's
-        argument construction, shared by `run_streaming` and the online
-        segmenter.  ``ext`` makes it a suffix decode (see
-        `_energy_states20`)."""
+        argument construction, shared by `run_streaming`,
+        ``Segmenter.segment_signal`` and the online segmenter.  ``ext``
+        makes it a suffix decode (see `_energy_states20`); ``probs_g``, the
+        chunks' gender emissions, replaces the tail's gender CNN."""
+        if probs_g is not None:
+            probs_g = torch.cat(list(probs_g))
         return self._tail(torch.cat([m for m, _ in chunks]),
                           torch.cat([lg for _, lg in chunks]),
                           torch.cat(list(probs_v)), n_frames, n_frames_patch,
-                          n20, ext)
+                          n20, ext, probs_g)
 
     def _tail(self, mspec, loge, probs_v, n_frames, n_frames_patch, n20,
               ext=None, probs_g=None):
@@ -270,10 +328,14 @@ class FusedPipeline:
     def run_streaming(self, chunks, n_frames, n_frames_patch, n20):
         """Streaming execution over per-chunk features
         [(mspec_c (CHUNK, 24), loge_c (CHUNK,))] -> (n20,) int32 label ids,
-        equal to `run` on the concatenated features."""
-        probs = [self.chunk_emissions(chunks, c) for c in range(len(chunks))]
-        return self.stream_decode(chunks, probs, n_frames, n_frames_patch,
-                                  n20)
+        equal to `run` on the concatenated features; the gender emissions
+        per chunk under ``ISS_STREAM_GENDER=1``."""
+        gender = self.gender is not None and stream_gender_enabled()
+        probs = [self.chunk_emissions(chunks, c, gender=gender)
+                 for c in range(len(chunks))]
+        return self.stream_decode(
+            chunks, [v for v, _ in probs], n_frames, n_frames_patch, n20,
+            probs_g=[g for _, g in probs] if gender else None)
 
     # -- sequence-parallel single-file path ---------------------------------
     #
@@ -303,7 +365,8 @@ class FusedPipeline:
             pipes = [FusedPipeline(
                 (v,) + tuple(vad[1:]),
                 None if g is None else (g,) + tuple(gender[1:]),
-                energy_ratio, device=d)
+                energy_ratio, self.viterbi_mode, self.skip_inactive,
+                device=d)
                 for v, g, d in zip(vads, gens, devices)]
             self._slots[key] = pipes, slot_streams(devices)
         return self._slots[key]
@@ -373,6 +436,24 @@ class FusedPipeline:
         head = pipes[0]
         return head._tail(mspec.to(dev0), loge.to(dev0), gather(0), n_frames,
                           n_frames_patch, n20, probs_g=probs_g)
+
+
+def bucket_chunks(n):
+    """The JAX package's chunk-count ladder (1, 2, 4, 6, 9, 14, ...: x1.5
+    past 4), which bounds its jit cache.  The port has no jit cache and
+    pads nothing to it; the multi-file engine groups files by it."""
+    b = 1
+    while b < n:
+        b = b * 2 if b < 4 else (b * 3 + 1) // 2
+    return b
+
+
+def bucket_rows(n_frames):
+    """The JAX package's padded feature-row count for ``n_frames`` frames:
+    ``bucket_chunks`` of the chunk count, times CHUNK (at least one)."""
+    from .dsp.sidekit import CHUNK
+
+    return bucket_chunks(max(1, -(-n_frames // CHUNK))) * CHUNK
 
 
 def rle(labels):

@@ -37,10 +37,12 @@ from .decode.viterbi import viterbi_path
 from .dsp.fe_kernel import KernelSidekitFrontend
 from .dsp.host_fe import HostSidekitFrontend
 from .dsp.patches import frame_patches
+from .dsp.sidekit import CHUNK, HOP, frame_count
 from .export import seg2csv, seg2textgrid
 from .models.registry import load_patch_model
-from .pipeline import FusedPipeline, rle
+from .pipeline import FusedPipeline, rle, stream_gender_enabled
 from .utils.device import resolve_device
+from .utils.env import require_device
 from .utils.prefetch import run_prefetched, staged_producer
 from .utils.timing import StageTimers
 
@@ -55,6 +57,7 @@ class DnnSegmenter:
 
     def __init__(self, batch_size=32, allow_download=True, *, device="cuda",
                  model_dir=None):
+        require_device(f"{type(self).__name__}()", device)
         self.device = resolve_device(device)
         self.model = load_patch_model(self.model_fname, model_dir,
                                       allow_download).to(self.device)
@@ -163,7 +166,13 @@ class Segmenter:
         own tier's flags under a lock and restores them
         (``models.layers.precision_scope``), also when the prefetch
         producer threads of ``batch_process`` run it.
+
+        A CUDA ``device`` is probed first, in a subprocess with a bound
+        (``utils.env.require_device``, ``ISS_CTOR_LINK_WAIT``): a stalled
+        driver raises ``TimeoutError`` instead of hanging the caller.
         """
+        # before anything that initialises CUDA in this process
+        require_device("Segmenter()", device)
         self.device = resolve_device(device)
         self.ffmpeg = check_ffmpeg(ffmpeg)
         self.energy_ratio = energy_ratio
@@ -255,22 +264,89 @@ class Segmenter:
                        return_pcm=False):
         """Segment an already-decoded 16 kHz mono signal (int16 or float)
         -> [(label, start_s, stop_s)], or ``(lseg, pcm_parts | None)`` with
-        ``return_pcm=True``: ``[x]``, the uploaded int16 signal on the
-        device (one part, no lookahead), for int16 input, None for float
-        input — the VFS scorer's VBx features reuse that upload.
+        ``return_pcm=True``: int16 tensors on the device that tile the
+        uploaded signal in order, with no overlap and no lookahead, for
+        int16 input, None for float input — the VFS scorer's VBx features
+        reuse that upload (``dsp.vbx.VbxFrontend.features_from_pcm``).
 
-        Always the fused path (``FusedPipeline.run``: one features launch,
-        then the CNNs on the active frames only), whatever the length.  The
-        JAX package streams files of two chunks or more here; the port
-        keeps the streaming decomposition (``pipeline.run_streaming``) for
-        the online family, whose labels equal these
-        (tests/test_torch_streaming.py)."""
-        if not return_pcm:
-            return self._segment(*self._sig2feats(sig, medianame), start_sec)
-        mspec, loge, t, difflen, pcm = self._sig2feats(sig, medianame,
-                                                       keep_pcm=True)
-        ret = self._segment(mspec, loge, t, difflen, start_sec)
-        return ret, (None if pcm is None else [pcm])
+        Two paths, with the same labels (tests/test_torch_streaming_call.py):
+
+        * fused (``FusedPipeline.run``: one features launch, then the CNNs
+          on the active frames only; one PCM part), the port's default;
+        * streaming, with ``ISS_STREAMING`` set to anything but ``0`` (the
+          JAX package's default): the frontend's upload groups
+          (``iter_group_feats``, one features launch a group), each
+          chunk's emissions queued as soon as its right halo exists, the
+          gender ones too under ``ISS_STREAM_GENDER=1``, then the tail
+          (``stream_decode``); one PCM part a group.  Files under 68
+          frames or of one chunk take the fused path on the group's rows.
+
+        Fused is the port's default because it runs the VAD CNN on the
+        energy-active frames only, where streaming runs it on every frame
+        of every chunk; it measured faster on the H100 (PERF.md, section
+        5).  The frontend without group launches (the host frontend) is
+        always fused.
+        """
+        if not (streaming_enabled()
+                and hasattr(self.frontend, "iter_group_feats")):
+            if not return_pcm:
+                return self._segment(*self._sig2feats(sig, medianame),
+                                     start_sec)
+            mspec, loge, t, difflen, pcm = self._sig2feats(sig, medianame,
+                                                           keep_pcm=True)
+            ret = self._segment(mspec, loge, t, difflen, start_sec)
+            return ret, (None if pcm is None else [pcm])
+        ret, pcm = self._segment_streaming(sig, start_sec, medianame,
+                                           return_pcm)
+        return (ret, pcm) if return_pcm else ret
+
+    def _segment_streaming(self, sig, start_sec, medianame, keep_pcm):
+        """The interleaved streaming call path (the JAX
+        ``segment_signal``'s) -> (lseg, pcm_parts | None)."""
+        pipe = self.pipeline
+        gender = self.detect_gender and stream_gender_enabled()
+        n = len(sig)
+        with self.timers.time("features"):
+            t = frame_count(n)
+            chunks, probs_v, probs_g, pcm = [], [], [], []
+
+            def dispatch_ready():
+                # a chunk's emissions need its right neighbour's halo
+                while len(probs_v) < len(chunks) - 1:
+                    pv, pg = pipe.chunk_emissions(chunks, len(probs_v),
+                                                  gender=gender)
+                    probs_v.append(pv)
+                    probs_g.append(pg)
+
+            for chunks_g, pcm_g in self.frontend.iter_group_feats(
+                    sig, keep_pcm=keep_pcm):
+                if pcm_g is not None:
+                    # drop the group's 2*HOP lookahead (the next group
+                    # starts there) and everything past the signal
+                    start = len(chunks) * CHUNK * HOP
+                    end = min(start + len(chunks_g) * CHUNK * HOP, n)
+                    if end > start:
+                        pcm.append(pcm_g[:end - start])
+                chunks.extend(chunks_g)
+                if t >= 68 and len(chunks) >= 2:
+                    dispatch_ready()
+        pcm = pcm or None
+        if t >= 68 and len(chunks) >= 2:
+            n20 = (t + 1) // 2
+            with self.timers.time("segment"):
+                pv, pg = pipe.chunk_emissions(chunks, len(chunks) - 1,
+                                              gender=gender)
+                probs_v.append(pv)
+                probs_g.append(pg)
+                ids = pipe.stream_decode(chunks, probs_v, t, t, n20,
+                                         probs_g=probs_g if gender else None)
+                ids = ids.cpu().numpy()[:n20]
+            return self.ids_to_lseg(ids, start_sec), pcm
+        # short or one-chunk media: the fused path on the group's rows
+        mspec = torch.cat([m for m, _ in chunks])
+        loge = torch.cat([lg for _, lg in chunks])
+        mspec, difflen = short_media_pad(mspec, t, medianame)
+        return self._segment(mspec, loge, t, difflen, start_sec), pcm
 
     def refresh_frontend(self):
         """Take the ``ISS_FRONTEND=auto`` choice again against a fresh
@@ -346,6 +422,13 @@ def _link_bandwidth_mbps(device, max_age_s=None):
             cached = (8.0 / max(time.perf_counter() - t0, 1e-6), now)
             _LINK_MBPS[str(device)] = cached
         return cached[0]
+
+
+def streaming_enabled():
+    """``ISS_STREAMING``: ``Segmenter.segment_signal`` streams when it is
+    set to anything but ``0``; unset (or empty) it runs fused, the port's
+    default (the JAX package streams when it is unset)."""
+    return os.environ.get("ISS_STREAMING", "0") not in ("", "0")
 
 
 def _default_frontend(device):

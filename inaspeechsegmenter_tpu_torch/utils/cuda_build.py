@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
 started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, loaded through ``ctypes`` (no PyTorch
 headers: a source that includes them takes minutes to build, these take
-seconds).  The library name carries a hash of the sources and flags, so an
-edited kernel is rebuilt at first use and a stale library is never loaded.
+seconds).  The library name carries a hash of the sources, the flags and
+``nvcc``'s release line, so an edited kernel is rebuilt at first use, and
+neither a stale library nor another toolkit's is ever loaded.
 
 Built for Hopper only (``sm_90a``).  No ``--use_fast_math``: it flushes
 denormals and approximates ``logf``, and the frontend's ``-inf`` rows on
@@ -40,8 +41,35 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+_RELEASES = {}
+
+
+def nvcc_release():
+    """``nvcc --version``'s release line (``Cuda compilation tools,
+    release 12.4, V12.4.131``), read once per ``nvcc`` binary; "" where
+    there is no ``nvcc`` or it prints none (the build then fails with
+    its own message)."""
+    try:
+        nvcc = find_nvcc()
+    except RuntimeError:
+        return ""
+    if nvcc not in _RELEASES:
+        try:
+            out = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            out = ""
+        _RELEASES[nvcc] = next((ln.strip() for ln in out.splitlines()
+                                if "release" in ln), "")
+    return _RELEASES[nvcc]
+
+
 def source_hash():
+    """Hash of the sources, the flags and the toolkit's release line: the
+    library's name, so an edited kernel or another toolkit never loads a
+    stale build (``utils/cache.py``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_release().encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:

@@ -71,6 +71,7 @@ from .pipeline import _finite_sums
 from .segmenter import Segmenter
 from .utils.device import (read_host_copy, resolve_device, start_host_copy,
                            upload)
+from .utils.env import require_device
 from .utils.prefetch import run_prefetched, staged_producer
 from .utils.retry import retry_call
 
@@ -428,6 +429,9 @@ class VoiceFemininityScoring:
         if gd_model_criteria not in ("bgc", "vfp"):
             raise ValueError("Gender detection model criteria must be 'bgc' "
                              f"or 'vfp', got {gd_model_criteria!r}")
+        # a bounded probe before anything initialises CUDA in-process
+        # (ISS_CTOR_LINK_WAIT; utils.env.require_device)
+        require_device("VoiceFemininityScoring()", device)
         self.device = resolve_device(device)
         self.ffmpeg = check_ffmpeg(ffmpeg)
         self.xvector_model = TorchResnetExtractor(
@@ -587,11 +591,13 @@ class VoiceFemininityScoring:
         """The gates that do not depend on the signal: ``ISS_VFS_OVERLAP``
         neither ``auto`` nor ``0`` (the JAX package's ``auto`` takes the
         overlap; here it takes the serial schedule, see the module's
-        docstring), the standard Segmenter VAD with a frontend of group
-        computations (not the host frontend), the one-device x-vector
-        extractor and the int16 VBx grid."""
+        docstring), ``ISS_STREAMING`` not ``0`` (the streaming kill
+        switch, as in the JAX package), the standard Segmenter VAD with a
+        frontend of group computations (not the host frontend), the
+        one-device x-vector extractor and the int16 VBx grid."""
         return (os.environ.get("ISS_VFS_OVERLAP", "auto") not in ("auto",
                                                                   "0")
+                and os.environ.get("ISS_STREAMING") != "0"
                 and isinstance(self.vad, Segmenter)
                 and hasattr(self.vad.frontend, "iter_group_feats")
                 and isinstance(self.xvector_model, TorchResnetExtractor)
@@ -637,7 +643,7 @@ class VoiceFemininityScoring:
             nonlocal stats
             while len(probs) < len(chunks) - 1:
                 c = len(probs)
-                probs.append(pipe.chunk_emissions(chunks, c))
+                probs.append(pipe.chunk_emissions(chunks, c)[0])
                 s, cnt, mask = _prov_step(pipe, *stats, probs[c],
                                           chunks[c][1])
                 stats = (s, cnt)
@@ -681,7 +687,7 @@ class VoiceFemininityScoring:
             select_and_embed(ready_before)
         vstream.append(pending_pcm)
         # the last chunk has no right halo (run_streaming's frontier)
-        probs.append(pipe.chunk_emissions(chunks, len(chunks) - 1))
+        probs.append(pipe.chunk_emissions(chunks, len(chunks) - 1)[0])
         select_and_embed(len(masks))
         session.flush(vstream.fea_buffer)
 

@@ -15,6 +15,10 @@ from inaspeechsegmenter_tpu_torch.utils import cuda_build
 
 FAKE_NVCC = """#!{python}
 import os, sys
+if sys.argv[1:] == ["--version"]:
+    print("Cuda compilation tools, release " +
+          os.environ.get("FAKE_NVCC_RELEASE", "12.4, V12.4.131"))
+    sys.exit(0)
 with open(os.environ["FAKE_NVCC_LOG"], "a") as fh:
     fh.write(" ".join(sys.argv[1:]) + "\\n")
 if os.environ.get("FAKE_NVCC_FAIL", "") and "-c" in sys.argv \\

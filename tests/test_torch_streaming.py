@@ -107,9 +107,9 @@ def test_chunk_emissions_match_jax(port_seg, jax_seg, jax_chunks, case):
     zero_right = case == "zero_right"
     want, _ = jax_seg.pipeline.chunk_emissions(
         jax_seg.vad.model.params, None, chunks, c, zero_right=zero_right)
-    got = port_seg.pipeline.chunk_emissions(port_chunks, c,
-                                            zero_right=zero_right)
-    assert got.shape == (CHUNK // 2, 3)
+    got, got_g = port_seg.pipeline.chunk_emissions(port_chunks, c,
+                                                   zero_right=zero_right)
+    assert got.shape == (CHUNK // 2, 3) and got_g is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
     if case == "first":
