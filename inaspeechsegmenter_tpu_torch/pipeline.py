@@ -49,6 +49,7 @@ from .decode.viterbi import viterbi_scan
 from .dsp.patches import (LPAD, PATCH_W, frame_patches, n_rows_of,
                           normalize_windows, windows_at)
 from .utils.device import resolve_device
+from .utils.timing import span
 
 CNN_CHUNK = 1024  # patches per CNN batch
 EPS = 1e-10
@@ -172,13 +173,17 @@ class FusedPipeline:
         probs = torch.full((inmask.shape[0], nout), 0.5, dtype=torch.float32,
                            device=mspec.device)
         if self.skip_inactive:
-            frames = torch.nonzero(inmask).flatten()
+            with span("cnn.select"):
+                frames = torch.nonzero(inmask).flatten()
         else:
             frames = torch.arange(inmask.shape[0], device=mspec.device)
         for b0 in range(0, frames.shape[0], CNN_CHUNK):
             idx = frames[b0:b0 + CNN_CHUNK]
-            patches, fin = frame_patches(mspec, idx, n_frames_patch, nmel)
-            p = model(patches[..., None])
+            with span("cnn.patches"):
+                patches, fin = frame_patches(mspec, idx, n_frames_patch,
+                                             nmel)
+            with span("cnn.forward"):
+                p = model(patches[..., None])
             probs[idx] = torch.where(fin[:, None], p, torch.full_like(p, 0.5))
         return probs
 
@@ -246,9 +251,11 @@ class FusedPipeline:
                                device=m.device).clamp(min=z)
         else:
             win = torch.arange(z - LPAD, z - LPAD + c20, device=m.device)
-        norm, fin = normalize_windows(windows_at(m, win, nmel,
-                                                 z - LPAD + c20 - 1))
-        p = model(norm.reshape(c20, PATCH_W, nmel)[..., None])
+        with span("cnn.patches"):
+            norm, fin = normalize_windows(windows_at(m, win, nmel,
+                                                     z - LPAD + c20 - 1))
+        with span("cnn.forward"):
+            p = model(norm.reshape(c20, PATCH_W, nmel)[..., None])
         return torch.where(fin[:, None], p, torch.full_like(p, 0.5))
 
     @torch.no_grad()
@@ -258,9 +265,11 @@ class FusedPipeline:
         reference's right replicate padding (segmenter.py:83-85)."""
         n_rows = n_rows_of(n_frames_patch)
         last = torch.tensor([n_rows - 1], device=mspec.device)
-        norm, fin = normalize_windows(windows_at(mspec, last, nmel,
-                                                 n_rows - 1))
-        p_last = model(norm.reshape(1, PATCH_W, nmel)[..., None])[0]
+        with span("cnn.patches"):
+            norm, fin = normalize_windows(windows_at(mspec, last, nmel,
+                                                     n_rows - 1))
+        with span("cnn.forward"):
+            p_last = model(norm.reshape(1, PATCH_W, nmel)[..., None])[0]
         probs[n_rows + LPAD:] = torch.where(fin[0], p_last,
                                             torch.full_like(p_last, 0.5))
         return probs

@@ -44,7 +44,7 @@ from .pipeline import FusedPipeline, rle, stream_gender_enabled
 from .utils.device import resolve_device
 from .utils.env import require_device
 from .utils.prefetch import run_prefetched, staged_producer
-from .utils.timing import StageTimers
+from .utils.timing import StageTimers, span
 
 
 class DnnSegmenter:
@@ -232,11 +232,16 @@ class Segmenter:
                 for lab, start, stop in rle(ids)]
 
     def _segment(self, mspec, loge, t, difflen, start_sec):
+        return self.ids_to_lseg(self._segment_ids(mspec, loge, t, difflen),
+                                start_sec)
+
+    def _segment_ids(self, mspec, loge, t, difflen):
+        """The fused pipeline's (n20,) label ids, on the host."""
         n_frames_patch, n20 = patch_counts(t, difflen)
         with self.timers.time("segment"):
             ids = self.pipeline.run(mspec, loge, t, n_frames_patch, n20)
-            ids = ids.cpu().numpy()[:n20]
-        return self.ids_to_lseg(ids, start_sec)
+            with span("seg.labels"):
+                return ids.cpu().numpy()[:n20]
 
     # ------------------------------------------------------------------
     def segment_feats(self, mspec, loge, difflen, start_sec):
@@ -340,7 +345,8 @@ class Segmenter:
                 probs_g.append(pg)
                 ids = pipe.stream_decode(chunks, probs_v, t, t, n20,
                                          probs_g=probs_g if gender else None)
-                ids = ids.cpu().numpy()[:n20]
+                with span("seg.labels"):
+                    ids = ids.cpu().numpy()[:n20]
             return self.ids_to_lseg(ids, start_sec), pcm
         # short or one-chunk media: the fused path on the group's rows
         mspec = torch.cat([m for m, _ in chunks])
@@ -368,8 +374,9 @@ class Segmenter:
         avg_per_file, [(dst, 0|1|2, status)]).  ``ISS_PREFETCH`` producer
         threads decode and compute the features of the next files while
         this thread segments and exports the current one
-        (``utils/prefetch.py``).  A failing file gets an ``error: ...``
-        status instead of aborting the batch."""
+        (``utils/prefetch.py``), each file in the span ``seg.file``.  A
+        failing file gets an ``error: ...`` status instead of aborting the
+        batch."""
         if verbose:
             print("batch_processing %d files" % len(linput))
         if output_format == "csv":
@@ -387,7 +394,10 @@ class Segmenter:
 
         def consume(feats, item, msg):
             b = time.time()
-            fexport(self._segment(*feats, 0), item[1])
+            with span("seg.file"):
+                ids = self._segment_ids(*feats)
+                with span("seg.export"):
+                    fexport(self.ids_to_lseg(ids), item[1])
             return (msg[0], msg[1], "ok " + str(time.time() - b))
 
         return run_prefetched(list(zip(linput, loutput)), produce, consume,

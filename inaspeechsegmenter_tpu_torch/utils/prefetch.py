@@ -9,6 +9,10 @@ run ``produce`` ahead while the consumer drains serially, and any exception
 escaping ``produce``/``consume`` becomes that file's ``(dst, 2, 'error:
 ...')`` status tuple instead of aborting the batch.
 
+Spans (``utils.timing``): ``prefetch.produce`` around each ``produce``
+on its producer thread, and ``prefetch.wait`` around the consumer's wait
+for each file's producer.
+
 Producers launch CUDA kernels from their own threads, on the default
 stream like the consumer: what overlaps is host work (the WAV read, the
 VBx dither and mirror pad), not device work.  ``torch.no_grad()`` is
@@ -26,6 +30,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 from .retry import retry_call
+from .timing import span
 
 
 def prefetch_depth():
@@ -79,17 +84,23 @@ def run_prefetched(items, produce, consume, verbose=False):
     lmsg = []
     items = list(items)
     depth = prefetch_depth()
+
+    def produce_in_span(item):
+        with span("prefetch.produce"):
+            return produce(item)
+
     with ThreadPoolExecutor(max_workers=depth) as pool:
-        futs = {i: pool.submit(produce, items[i])
+        futs = {i: pool.submit(produce_in_span, items[i])
                 for i in range(min(depth, len(items)))}
         for i, item in enumerate(items):
             try:
-                payload, msg = futs.pop(i).result()
+                with span("prefetch.wait"):
+                    payload, msg = futs.pop(i).result()
             except Exception as exc:   # produce escaping its own retry
                 payload, msg = None, (item[1], 2, "error: " + repr(exc))
             j = i + depth
             if j < len(items):
-                futs[j] = pool.submit(produce, items[j])
+                futs[j] = pool.submit(produce_in_span, items[j])
             lmsg.append(msg)
             if payload is not None:
                 try:

@@ -74,6 +74,7 @@ from .utils.device import (read_host_copy, resolve_device, start_host_copy,
 from .utils.env import require_device
 from .utils.prefetch import run_prefetched, staged_producer
 from .utils.retry import retry_call
+from .utils.timing import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -214,8 +215,11 @@ class TorchResnetExtractor:
             if bucket != k:
                 part = torch.cat([part, part.new_zeros(
                     (bucket - k,) + tuple(part.shape[1:]))])
-            outs.append(self._forward(part)[:k])
-        return torch.cat(outs).cpu().numpy()
+            count("xvec.windows", k)
+            with span("xvec.forward"):
+                outs.append(self._forward(part)[:k])
+        with span("xvec.sync"):
+            return torch.cat(outs).cpu().numpy()
 
     @torch.no_grad()
     def embeddings_from_features(self, fea, starts):
@@ -242,12 +246,18 @@ class TorchResnetExtractor:
         window's embedding does not depend on the rest of its batch."""
         st = upload(np.asarray(starts, np.int64), fea.device)
         offs = torch.arange(WINLEN, device=fea.device)
-        return self._forward(fea[st[:, None] + offs[None, :]].transpose(1, 2))
+        windows = fea[st[:, None] + offs[None, :]].transpose(1, 2)
+        with span("xvec.forward"):
+            return self._forward(windows)
 
     @torch.no_grad()
     def get_embedding(self, fea):
         """Embedding of one (T, 64) window at its own length."""
-        return self.net(fea.T[None])[0].cpu().numpy()
+        count("xvec.windows")
+        with span("xvec.forward"):
+            out = self.net(fea.T[None])
+        with span("xvec.sync"):
+            return out[0].cpu().numpy()
 
     @torch.no_grad()
     def get_embedding_masked(self, fea, start, length):
@@ -257,9 +267,13 @@ class TorchResnetExtractor:
         t = fea.shape[0]
         idx = torch.clamp(start + torch.arange(WINLEN, device=fea.device),
                           max=t - 1)
-        out = self.net(fea[idx].T[None],
-                       torch.tensor([length], device=fea.device))
-        return out[0].cpu().numpy()
+        count("xvec.windows")
+        window, lengths = fea[idx].T[None], torch.tensor([length],
+                                                          device=fea.device)
+        with span("xvec.forward"):
+            out = self.net(window, lengths)
+        with span("xvec.sync"):
+            return out[0].cpu().numpy()
 
     def __call__(self, basename, fea, duration, timeline=None, embed=None):
         """Reference-compatible VBxExtractor.__call__
@@ -273,6 +287,9 @@ class TorchResnetExtractor:
         windows' raw embeddings come from (default
         ``embeddings_from_features``; ``OnlineVFS.finalize`` hands its
         cache plus a catch-up batch).
+
+        The window list, the midpoint filter and the NaN filter run in the
+        span ``vfs.select``.
         """
         fea = torch.as_tensor(fea, dtype=torch.float32, device=self.device)
         speech_only = timeline is not None
@@ -284,36 +301,41 @@ class TorchResnetExtractor:
 
         n = int(fea.shape[0])
         xvectors = []
-        starts = list(range(0, n - WINLEN, STEP))
-        segs = [(round(s / 100.0, 3), round(s / 100.0 + WINLEN / 100.0, 3))
-                for s in starts]
-        if speech_only:
-            kept = [i for i, seg in enumerate(segs) if midpoint_in_speech(seg)]
-        else:
-            kept = list(range(len(starts)))
-        embs = embed(fea, [starts[i] for i in kept])
-        for i, emb in zip(kept, embs):
-            key = f"{basename}_{starts[i]:08}-{starts[i] + WINLEN:08}"
-            if np.isnan(emb).any():
-                logger.warning(f"NaN found, not processing: {key}{os.linesep}")
+        with span("vfs.select"):
+            starts = list(range(0, n - WINLEN, STEP))
+            segs = [(round(s / 100.0, 3),
+                     round(s / 100.0 + WINLEN / 100.0, 3)) for s in starts]
+            if speech_only:
+                kept = [i for i, seg in enumerate(segs)
+                        if midpoint_in_speech(seg)]
             else:
-                xvectors.append((key, segs[i], emb))
-        # with no full window the tail starts at frame STEP (reference quirk)
-        start = starts[-1] if starts else 0
-        if n - start - STEP >= 10:
-            tail_seg = (round((start + STEP) / 100.0, 3), round(duration, 3))
-            if not speech_only or midpoint_in_speech(tail_seg):
-                if os.environ.get("ISS_XVEC_TAIL", "masked") == "exact":
-                    emb = self.get_embedding(fea[start + STEP:])
-                else:
-                    emb = self.get_embedding_masked(fea, start + STEP,
-                                                    n - (start + STEP))
-                key = f"{basename}_{start + STEP:08}-{n:08}"
+                kept = list(range(len(starts)))
+        embs = embed(fea, [starts[i] for i in kept])
+        with span("vfs.select"):
+            for i, emb in zip(kept, embs):
+                key = f"{basename}_{starts[i]:08}-{starts[i] + WINLEN:08}"
                 if np.isnan(emb).any():
                     logger.warning(
                         f"NaN found, not processing: {key}{os.linesep}")
                 else:
-                    xvectors.append((key, tail_seg, emb))
+                    xvectors.append((key, segs[i], emb))
+            # with no full window the tail starts at frame STEP (reference
+            # quirk)
+            start = starts[-1] if starts else 0
+            tail_seg = (round((start + STEP) / 100.0, 3), round(duration, 3))
+            tail = n - start - STEP >= 10 and (
+                not speech_only or midpoint_in_speech(tail_seg))
+        if tail:
+            if os.environ.get("ISS_XVEC_TAIL", "masked") == "exact":
+                emb = self.get_embedding(fea[start + STEP:])
+            else:
+                emb = self.get_embedding_masked(fea, start + STEP,
+                                                n - (start + STEP))
+            key = f"{basename}_{start + STEP:08}-{n:08}"
+            if np.isnan(emb).any():
+                logger.warning(f"NaN found, not processing: {key}{os.linesep}")
+            else:
+                xvectors.append((key, tail_seg, emb))
         return [(key, seg, x * 10) for key, seg, x in xvectors]
 
 
@@ -357,6 +379,7 @@ class _EmbedSession:
         self.n_needed = self.n_caught_up = 0
 
     def _dispatch(self, starts, real, fea):
+        count("xvec.windows", len(real))
         self.batches.append((real, start_host_copy(
             self.xm.dispatch_windows(fea, starts))))
 
@@ -467,8 +490,9 @@ class VoiceFemininityScoring:
     def _prepare(self, fpath):
         """Decode + VAD + VBx features (everything before the ResNet):
         -> (basename, fea | None, timeline, duration, speech_duration)."""
-        return self._prepare_decoded(fpath, media2sig16kmono(
-            fpath, ffmpeg=self.ffmpeg, dtype="auto"))
+        with span("vfs.prepare"):
+            return self._prepare_decoded(fpath, media2sig16kmono(
+                fpath, ffmpeg=self.ffmpeg, dtype="auto"))
 
     def _prepare_decoded(self, fpath, sig):
         """``_prepare`` of the file's ``dtype="auto"`` decode ``sig``."""
@@ -507,13 +531,14 @@ class VoiceFemininityScoring:
         speech_duration = timeline.total_duration()
         fea = None
         if speech_duration:
-            if (pcm is not None and n_samples >= 400
-                    and vbx.vbx_i16_enabled(self.device)):
-                fea = self.features.features_from_pcm(pcm, n_samples)
-            else:
-                if signal is None:
-                    signal = sig.astype(np.float64) / 32768.0
-                fea = self.features.features(signal)
+            with span("vfs.vbx_features"):
+                if (pcm is not None and n_samples >= 400
+                        and vbx.vbx_i16_enabled(self.device)):
+                    fea = self.features.features_from_pcm(pcm, n_samples)
+                else:
+                    if signal is None:
+                        signal = sig.astype(np.float64) / 32768.0
+                    fea = self.features.features(signal)
         return basename, fea, timeline, duration, speech_duration
 
     def score_signal(self, sig, basename="<signal>"):
@@ -545,19 +570,21 @@ class VoiceFemininityScoring:
 
     def _score_xvectors(self, x_vectors, timeline, speech_duration):
         """apply_vad -> gender MLP -> femininity score."""
-        x_vectors = self.apply_vad(x_vectors, timeline)
+        with span("vfs.apply_vad"):
+            x_vectors = self.apply_vad(x_vectors, timeline)
         if not x_vectors:
             # a speech sliver can leave no window midpoint in speech: the
             # score is undefined, as with no speech.  The reference crashes
             # here (ZeroDivisionError, vbx_segmenter.py:55-61) — a
             # deliberate deviation.
             return None, speech_duration, 0
-        pred = np.atleast_1d(np.asarray(
-            self.mlp_probabilities(np.asarray([x for _, _, x in x_vectors])))
-            .squeeze())
-        g_preds = [(seg[0], seg[1], float(p))
-                   for (_, seg, _), p in zip(x_vectors, pred)]
-        return get_femininity_score(g_preds), speech_duration, len(g_preds)
+        with span("vfs.mlp"):
+            pred = np.atleast_1d(np.asarray(self.mlp_probabilities(
+                np.asarray([x for _, _, x in x_vectors]))).squeeze())
+            g_preds = [(seg[0], seg[1], float(p))
+                       for (_, seg, _), p in zip(x_vectors, pred)]
+            score = get_femininity_score(g_preds)
+        return score, speech_duration, len(g_preds)
 
     @torch.no_grad()
     def mlp_probabilities(self, x):
@@ -715,8 +742,9 @@ class VoiceFemininityScoring:
         lmsg entries (dst, 0|1|2, 'ok t'|'already exists'|'error: ...').
         ``ISS_PREFETCH`` producer threads run decode + VAD + VBx features of
         the next files (``_prepare``) while this thread runs the current
-        file's ResNet and MLP (``utils/prefetch.py``); both phases get the
-        ``nbtry`` / ``trydelay`` retry budget.
+        file's ResNet and MLP (``utils/prefetch.py``), each file in the
+        span ``vfs.score``; both phases get the ``nbtry`` / ``trydelay``
+        retry budget.
         """
         if verbose:
             print("batch_processing %d files" % len(linput))
@@ -726,11 +754,14 @@ class VoiceFemininityScoring:
         def consume(prepared, item, msg):
             dst = item[1]
             b = time.time()
-            result, err = retry_call(lambda: self._score_prepared(prepared),
-                                     nbtry=nbtry, trydelay=trydelay)
-            if result is None:
-                return (dst, 2, "error: " + str(err))
-            score_to_csv(result, dst)
+            with span("vfs.score"):
+                result, err = retry_call(
+                    lambda: self._score_prepared(prepared), nbtry=nbtry,
+                    trydelay=trydelay)
+                if result is None:
+                    return (dst, 2, "error: " + str(err))
+                with span("vfs.export"):
+                    score_to_csv(result, dst)
             return (dst, 0, "ok " + str(time.time() - b))
 
         return run_prefetched(list(zip(linput, loutput)), produce, consume,
