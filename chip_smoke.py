@@ -20,7 +20,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
    plain loop is affordable, and timed like the others at T = 180000), and
    with the online suffix decode's near-one-hot initial vector (states
    equal).  Kernel and plain times and the Viterbi's pass counts and walked
-   chunks are printed;
+   chunks are printed.  The CNN blocks' epilogue (``csrc/cnn_epilogue.cu``)
+   at each block of the full-width VAD and gender CNNs at 1,024 patches:
+   bit-equal to its plain version, its device ms, bound and plain ms, 4
+   launches a forward, and its launches for a 10 min file
+   (``python3 chip_smoke.py --cnn-epilogue`` runs the build and this part
+   alone).  From here on every counted run of every phase holds the
+   epilogue to 4 launches a forward on the card of a CNN with fused
+   blocks (``CNN_FORWARDS`` counts those forwards, in the child
+   processes too);
 2. the main path: full-width synthetic weights (seeded), ``Segmenter("smn",
    detect_gender=True, ffmpeg=None, device="cuda")``, the prefetched
    ``batch_process`` of three WAVs (2 s of silence, a 60 s and a 10 min
@@ -723,30 +731,196 @@ def warm_batch_walls(batch, wavs, outs, tag):
         f"{walls}")
 
 
+def epilogue_model(torch, dev, nmel, nout, seed):
+    """A full-width synthetic patch CNN with non-trivial biases and
+    BatchNorm statistics (negative scales among them), on the card."""
+    from inaspeechsegmenter_tpu_torch.models.native import ImportedModel
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+
+    spec, params = build_patch_cnn(nmel, nout, seed, "full")
+    rng = np.random.default_rng(seed)
+    for i in range(4):
+        c = params[f"bn{i}"][0].shape[0]
+        params[f"conv{i}"][1] = rng.normal(0, 0.1, c).astype(np.float32)
+        params[f"bn{i}"] = [rng.uniform(-1.5, 1.5, c).astype(np.float32),
+                            rng.normal(0, 0.1, c).astype(np.float32),
+                            rng.normal(0, 0.1, c).astype(np.float32),
+                            rng.uniform(0.5, 2.0, c).astype(np.float32)]
+    return ImportedModel(spec, params).to(dev)
+
+
+EPILOGUE_BATCH = 1024      # pipeline.CNN_CHUNK: the dense path's batch
+
+
+def phase_cnn_epilogue(torch, dev, workdir):
+    """The CNN blocks' epilogue kernel on the card: at each block of the
+    VAD (nmel 21) and gender (nmel 24) CNNs at 1,024 patches, the kernel
+    against its plain version (bit-equal), its device ms over distinct
+    conv outputs, the bound, the plain version's ms; launches a forward
+    and for a 10 min file."""
+    from inaspeechsegmenter_tpu_torch import Segmenter
+    from inaspeechsegmenter_tpu_torch.models import layers as L
+    from inaspeechsegmenter_tpu_torch.models.synthetic import (
+        install_synthetic_models)
+
+    rows, per_forward = [], {}
+    for label, (nmel, nout, seed) in (("vad", (21, 3, 1)),
+                                      ("gender", (24, 2, 2))):
+        model = epilogue_model(torch, dev, nmel, nout, seed)
+        x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (EPILOGUE_BATCH, 68, nmel, 1)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            reset_kernel_counts()
+            model(x)
+            torch.cuda.synchronize()
+            c = kernel_counts()
+            per_forward[label] = c["cnn_epilogue"]
+            check(c["cnn_forwards"] == 1, f"{label} CNN: one forward "
+                  f"counted {c['cnn_forwards']} fused forwards")
+            check_cnn_launches(c, f"the {label} CNN's forward")
+            v = L.from_keras(x)
+            chains = [fn for _, fn, _, _ in model._steps
+                      if isinstance(fn, L.ConvChain)]
+            for k, fn in enumerate(chains):
+                pads = None if fn.padded_input else fn.conv.border(
+                    *v.shape[2:])
+                xin = v if pads is None else torch.nn.functional.pad(
+                    v, (pads[2], pads[3], pads[0], pads[1]))
+                y = fn.conv.convolve(xin, bias=False)
+                bn = fn.bn
+                border = None if fn.next_conv is None else \
+                    fn.next_conv.border(*L.pooled_size(*y.shape[2:],
+                                                       fn.pool))
+                args = (fn.conv.bias, tuple(fn.relu),
+                        (bn.mean, bn.inv, bn.gamma, bn.beta), fn.pool,
+                        border)
+                got = L.cnn_epilogue(y, *args)
+                want = L.cnn_epilogue_plain(y, *args)
+                torch.cuda.synchronize()
+                check(got.stride() == want.stride() and np.array_equal(
+                    got.cpu().numpy(), want.cpu().numpy(), equal_nan=True),
+                    f"{label} block {k}: kernel differs from plain")
+                n_bytes = 4 * (y.numel() + got.numel())
+                bound_ms, bound_by = bound(n_bytes, 8 * y.numel())
+                copies = [y.clone() for _ in range(rotation(n_bytes))]
+                tm = timing(torch, [lambda c=c: L.cnn_epilogue(c, *args)
+                                    for c in copies],
+                            ("cnn_epilogue_kernel",),
+                            lambda: L.cnn_epilogue(y, *args), 20)
+                plain_ms = cuda_ms(lambda: L.cnn_epilogue_plain(y, *args),
+                                   10, torch)
+                row = {"cnn": label, "block": k,
+                       "conv_out": list(y.shape), "out": list(got.shape),
+                       "border": border, **tm, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes": n_bytes}
+                log(f"[kernels] cnn_epilogue {label} block {k} "
+                    f"{tuple(y.shape)} -> {tuple(got.shape)}: device_ms="
+                    f"{tm['device_ms']!r} ({tm['device_by']}), call_ms="
+                    f"{tm['call_ms']!r}, plain_ms={plain_ms!r}, bound_ms="
+                    f"{bound_ms!r} ({bound_by}), "
+                    f"{bound_ms / tm['device_ms']:.3f} of the bound")
+                rows.append(row)
+                del copies
+                v = fn(v)
+        del model, x, v
+    # the launches of a 10 min file through the Segmenter's CNNs
+    models = install_synthetic_models(os.path.join(workdir, "epilogue"),
+                                      size="full")
+    seg = Segmenter("smn", True, ffmpeg=None, device=dev, model_dir=models,
+                    allow_download=False)
+    sig = to_int16(seeded_mix(600, seed=600, silences=silences_every(600)))
+    seg.segment_signal(sig)
+    reset_kernel_counts()
+    seg.segment_signal(sig)
+    torch.cuda.synchronize()
+    c = kernel_counts()
+    per_file = c["cnn_epilogue"]
+    log(f"[kernels] cnn_epilogue launches for the 10 min file: {per_file} "
+        f"in {c['cnn_forwards']} CNN forwards")
+    check(per_file > 0, "a 10 min file launched no epilogue")
+    check_segmentation_launches(c, "the 10 min file")
+    for label in ("vad", "gender"):
+        mine = [r for r in rows if r["cnn"] == label]
+        log(f"[kernels] cnn_epilogue {label}: four blocks "
+            f"{sum(r['device_ms'] for r in mine)!r} device ms, bound "
+            f"{sum(r['bound_ms'] for r in mine)!r} ms, plain "
+            f"{sum(r['plain_ms'] for r in mine)!r} ms")
+    return {"name": "cnn_epilogue", "route": "cuda",
+            "source": "inaspeechsegmenter_tpu_torch/csrc/cnn_epilogue.cu",
+            "replaces": "none (XLA fused these passes in the JAX package)",
+            "rows": rows, "launches_per_forward": per_forward,
+            "launches_10_min_file": per_file, "library_ms": None,
+            "library_note": "no single PyTorch call computes the function",
+            "size": f"{EPILOGUE_BATCH} patches a block"}
+
+
 SEGMENTATION_KERNELS = ("sidekit_fe", "viterbi")   # K <= 3 decodes only
 CODEC_KERNELS = ("unpack_bits", "unpack_zero_elide")  # where the codec is on
+CNN_KEYS = ("cnn_epilogue", "cnn_forwards")     # 4 launches a CNN forward
+EPILOGUE_PER_FORWARD = 4        # the patch CNNs' four fused blocks
 
 
 def kernel_wrappers():
     """Every kernel wrapper, by kernel name."""
     from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
     from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
+    from inaspeechsegmenter_tpu_torch.models import layers
 
     return {"sidekit_fe": fe_kernel.sidekit_features,
             "viterbi": tv.viterbi_scan,
             "viterbi_general": tv.viterbi_scan_general,
             "unpack_bits": codec.unpack_bits,
-            "unpack_zero_elide": codec.unpack_zero_elide}
+            "unpack_zero_elide": codec.unpack_zero_elide,
+            "cnn_epilogue": layers.cnn_epilogue}
+
+
+# Counts the forwards on the card of the models that run fused conv chains
+# (``ImportedModel.fused_blocks``), in ``_cnn["forwards"]``: each launches
+# the epilogue once a block.  Run in this process by ``count_cnn_forwards``
+# and in the child processes' scripts, which hold it.
+CNN_FORWARDS = r"""
+import threading
+from inaspeechsegmenter_tpu_torch.models.native import ImportedModel as _Model
+
+_cnn = {"forwards": 0, "lock": threading.Lock()}
+_model_forward = _Model.forward
+
+
+def _counted_forward(self, x):
+    t = x[0] if isinstance(x, (list, tuple)) else x
+    if self.fused_blocks and getattr(t, "is_cuda", False) and len(t):
+        with _cnn["lock"]:
+            _cnn["forwards"] += 1
+    return _model_forward(self, x)
+
+
+_Model.forward = _counted_forward
+"""
+_CNN = {"forwards": 0}
+
+
+def count_cnn_forwards():
+    """Count the fused CNN forwards on the card from now on
+    (``CNN_FORWARDS``)."""
+    global _CNN
+    ns = {}
+    exec(CNN_FORWARDS, ns)
+    _CNN = ns["_cnn"]
 
 
 def kernel_counts():
-    """Every kernel wrapper's launch count."""
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+    """Every kernel wrapper's launch count, and ``cnn_forwards``: the
+    fused CNN forwards on the card."""
+    out = {k: w.launches for k, w in kernel_wrappers().items()}
+    out["cnn_forwards"] = _CNN["forwards"]
+    return out
 
 
 def reset_kernel_counts():
     for w in kernel_wrappers().values():
         w.launches = 0
+    _CNN["forwards"] = 0
 
 
 def codec_on():
@@ -759,30 +933,45 @@ def codec_on():
 
 
 def without_codec(counts):
-    """The counts of the kernels whose launches do not depend on the
-    upload codec."""
-    return {k: v for k, v in counts.items() if k not in CODEC_KERNELS}
+    """The counts of the kernels whose launches depend neither on the
+    upload codec nor on the CNNs' batches (``check_routed_launches``
+    holds those)."""
+    return {k: v for k, v in counts.items()
+            if k not in CODEC_KERNELS + CNN_KEYS}
 
 
-def check_codec_launches(counts, what):
-    """With the codec off, no decode kernel launches; with it on, the
-    route depends on the data (phase 11 checks it against pack_best)."""
+def check_cnn_launches(counts, what):
+    """The CNN epilogue launched 4 times a fused CNN forward on the card
+    (``cnn_forwards``), and not otherwise."""
+    n, forwards = counts["cnn_epilogue"], counts["cnn_forwards"]
+    check(n == EPILOGUE_PER_FORWARD * forwards,
+          f"{what} launched cnn_epilogue {n} times in {forwards} fused CNN "
+          f"forwards, not {EPILOGUE_PER_FORWARD} a forward")
+
+
+def check_routed_launches(counts, what):
+    """The kernels whose launches follow the data: with the codec off, no
+    decode kernel launches (with it on, the route depends on the data;
+    phase 11 checks it against pack_best); the CNN epilogue as
+    ``check_cnn_launches`` says."""
     if not codec_on():
         for name in CODEC_KERNELS:
             check(counts[name] == 0,
                   f"{what} launched {name} with the codec off")
+    check_cnn_launches(counts, what)
 
 
 def check_segmentation_launches(counts, what):
     """A segmentation or VFS run launches the features and K <= 3 Viterbi
     kernels, and never the general-K one (its decodes have 2 or 3
-    states); the decode kernels as ``check_codec_launches`` says."""
+    states); the decode kernels and the CNN epilogue as
+    ``check_routed_launches`` says."""
     for name, n in without_codec(counts).items():
         if name in SEGMENTATION_KERNELS:
             check(n > 0, f"{what} never launched the {name} kernel")
         else:
             check(n == 0, f"{what} launched the {name} kernel {n} times")
-    check_codec_launches(counts, what)
+    check_routed_launches(counts, what)
 
 
 def phase_main(torch, dev, workdir):
@@ -935,6 +1124,7 @@ def segmentation_split(torch, dev, seg, wav, reps=5):
         pipeline.viterbi_scan = tv.viterbi_scan
     torch.cuda.synchronize()
     per_file = kernel_counts()
+    check_segmentation_launches(per_file, "the counted mix600 run")
     for name, args in zip(("energy", "VAD", "gender"), captured):
         ms = cuda_ms(lambda: tv.viterbi_scan(*args), 10, torch)
         T, K = args[0].shape
@@ -1081,6 +1271,7 @@ def phase_vfs(torch, dev, workdir, files, wavs, models):
     vfs(wav)
     torch.cuda.synchronize()
     per_file = kernel_counts()
+    check_segmentation_launches(per_file, "the counted VFS mix600 run")
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
@@ -1371,7 +1562,7 @@ def phase_streaming_switch(torch, seg, vfs, files):
                                        "viterbi_general": 0},
                   f"{mode} {name}: launches {c}, routing predicts "
                   f"{want_fe} features launches and 3 decodes")
-            check_codec_launches(c, f"the {mode} {name} run")
+            check_routed_launches(c, f"the {mode} {name} run")
             per[f"{mode}_{name}"] = c
     walls = {(mode, name): [] for mode, _ in STREAM_MODES for name in names}
     for turn in range(STREAM_TURNS):
@@ -1412,6 +1603,7 @@ def phase_streaming_switch(torch, seg, vfs, files):
     check(without_codec(c) == {"sidekit_fe": upload_group_count(sig),
                                "viterbi": 2, "viterbi_general": 0},
           f"VFS streamed launches {c}")
+    check_routed_launches(c, "the VFS streamed run")
     per["vfs_streamed_mix600"] = c
     log(f"[streaming] VFS mix600 with ISS_STREAMING=1: {got} == the fused "
         f"VAD's; launches {c}")
@@ -2108,6 +2300,7 @@ def phase_general_viterbi(torch, dev):
     check(launches["viterbi_general"] == len(cases),
           f"viterbi_decoding launched the general-K kernel "
           f"{launches['viterbi_general']} times")
+    check_cnn_launches(launches, "viterbi_decoding")
     for name, (em, tr, kw) in cases.items():
         t0 = time.perf_counter()
         want = tv.viterbi_decoding(em, tr, device="cpu", **kw)
@@ -2207,9 +2400,12 @@ def phase_dnn_stage(torch, dev, seg, files, models):
         f"(smn {lv_c == lv_p}), {n_diff} of {n20} frames differ; walls cuda "
         f"{w_c!r} s, cpu {w_p!r} s; kernel launches {launches}")
     check(n_diff <= 0.001 * n20, "DnnSegmenter cuda and cpu differ on >0.1%")
-    check(launches == {"sidekit_fe": 0, "viterbi": 2, "viterbi_general": 0,
-                       "unpack_bits": 0, "unpack_zero_elide": 0},
-          "the two stages did not launch one K <= 3 Viterbi each")
+    check({k: v for k, v in launches.items() if k not in CNN_KEYS} == {
+        "sidekit_fe": 0, "viterbi": 2, "viterbi_general": 0,
+        "unpack_bits": 0, "unpack_zero_elide": 0},
+        "the two stages did not launch one K <= 3 Viterbi each")
+    check(launches["cnn_forwards"] > 0, "the two stages ran no fused CNN")
+    check_cnn_launches(launches, "the two stages")
     return launches
 
 
@@ -2303,6 +2499,7 @@ def phase_train(torch, dev, workdir, seg, files, wavs, models):
         f"cuda vs cpu max_abs_err={x_err!r} (atol {PATCH_ATOL}), labels equal")
     check(x_err <= PATCH_ATOL, "cuda and cpu patches differ")
     check(launches["sidekit_fe"] == 1, "the dataset skipped the kernel")
+    check_cnn_launches(launches, "patch_dataset")
     del xc, yc
 
     model = load_patch_model("keras_speech_music_noise_cnn.hdf5", models)
@@ -2587,6 +2784,7 @@ def slot_kernels(torch, devices):
     counts = kernel_counts()
     check(counts["sidekit_fe"] == 2 and counts["viterbi"] == 2,
           f"slot kernels launched {counts}")
+    check_cnn_launches(counts, "the slots")
     for k, ((mspec, loge), states) in enumerate(out):
         x, consts, args = inputs[k]
         mp, lp = fe_kernel.sidekit_features_plain(x, consts)
@@ -2657,7 +2855,7 @@ def phase_engine(torch, dev, workdir, seg, vfs, params, files, wavs, models,
     check(without_codec(per["engine_batch"]) == {
         "sidekit_fe": 3, "viterbi": 9, "viterbi_general": 0},
           f"engine batch launches {per['engine_batch']}")
-    check_codec_launches(per["engine_batch"], "the engine batch")
+    check_routed_launches(per["engine_batch"], "the engine batch")
     for w, o in zip(wavs, outs):
         ref = os.path.join(workdir, "out", os.path.basename(w)[:-4] + ".csv")
         with open(o, "rb") as a, open(ref, "rb") as b:
@@ -2678,7 +2876,7 @@ def phase_engine(torch, dev, workdir, seg, vfs, params, files, wavs, models,
     check(without_codec(per["sharded"]) == {"sidekit_fe": 1, "viterbi": 3,
                                             "viterbi_general": 0},
           f"sharded launches {per['sharded']}")
-    check_codec_launches(per["sharded"], "the sharded file")
+    check_routed_launches(per["sharded"], "the sharded file")
     a, b = frame_labels(got), frame_labels(seg(wav))
     check(a.shape == b.shape, "sharded and fused label counts differ")
     n_diff = int((a != b).sum())
@@ -2792,6 +2990,7 @@ OVERLAP_ORDER = ("serial", "overlapped", "overlapped", "serial", "serial",
 
 
 MESH_STEP_FLAG = "--mesh-step-repeats"
+EPILOGUE_FLAG = "--cnn-epilogue"   # the build and phase 1's epilogue alone
 
 
 def decision_hooks(torch, model, store):
@@ -3115,7 +3314,7 @@ def phase_overlap(torch, dev, vfs, files, wavs, models):
                 "viterbi_general": 0}
         check(without_codec(got) == want, f"{name}: overlapped launches "
               f"{got}, the route gives {want}")
-        check_codec_launches(got, f"{name}: overlapped")
+        check_routed_launches(got, f"{name}: overlapped")
         reset_kernel_counts()
         serial(sig, name)
         torch.cuda.synchronize()
@@ -3123,7 +3322,7 @@ def phase_overlap(torch, dev, vfs, files, wavs, models):
         check(without_codec(got_s) == {"sidekit_fe": 1, "viterbi": 2,
                                        "viterbi_general": 0},
               f"{name}: serial launches {got_s}")
-        check_codec_launches(got_s, f"{name}: serial")
+        check_routed_launches(got_s, f"{name}: serial")
         log(f"[overlap] {name} ({len(sig) / SR!r} s, {chunks} chunks in "
             f"{groups} groups): result {results.pop()} equal on both "
             f"schedules; warm walls in turns (s) {walls}; medians serial "
@@ -3204,6 +3403,7 @@ def phase_overlap(torch, dev, vfs, files, wavs, models):
     got = ov.finalize()
     torch.cuda.synchronize()
     per["online_vfs_mix60"] = kernel_counts()
+    check_segmentation_launches(per["online_vfs_mix60"], "the online VFS")
     want60 = serial(sig60, "mix60")
     check(got == want60, f"OnlineVFS.finalize {got} != score_signal "
           f"{want60}")
@@ -3251,6 +3451,7 @@ from inaspeechsegmenter_tpu_torch.audio import native
 from inaspeechsegmenter_tpu_torch.audio.wav import write_wav
 from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
 from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
+from inaspeechsegmenter_tpu_torch.models import layers
 from inaspeechsegmenter_tpu_torch.utils import env as port_env
 marks.append(("port import", time.time()))
 port_env.require_device("runner", "cuda")   # cold: the probe's subprocess
@@ -3264,17 +3465,20 @@ wrappers = {"sidekit_fe": fe_kernel.sidekit_features,
             "viterbi": tv.viterbi_scan,
             "viterbi_general": tv.viterbi_scan_general,
             "unpack_bits": codec.unpack_bits,
-            "unpack_zero_elide": codec.unpack_zero_elide}
-
+            "unpack_zero_elide": codec.unpack_zero_elide,
+            "cnn_epilogue": layers.cnn_epilogue}
+""" + CNN_FORWARDS + r"""
 
 def counts():
     torch.cuda.synchronize()
-    return {k: w.launches for k, w in wrappers.items()}
+    return {**{k: w.launches for k, w in wrappers.items()},
+            "cnn_forwards": _cnn["forwards"]}
 
 
 def reset():
     for w in wrappers.values():
         w.launches = 0
+    _cnn["forwards"] = 0
 
 
 out = {"package": port.__file__, "native_source": native.SOURCE,
@@ -3510,7 +3714,7 @@ def phase_installed(torch, dev, workdir, files, wavs, models, resampled):
     check(without_codec(launches) == {"sidekit_fe": 1, "viterbi": 3,
                                       "viterbi_general": 0},
           f"installed mix600 launches {launches}")
-    check_codec_launches(launches, "the installed mix600 run")
+    check_routed_launches(launches, "the installed mix600 run")
     got = [tuple(x) for x in res["resampled"]]
     check(res["native_source"] == os.path.join(target, PORT, "native",
                                                "issaudio.cc")
@@ -3948,6 +4152,7 @@ def phase_codec(torch, dev, workdir, seg, vfs, files, wavs, models):
     check(err <= XVEC_REL_LIMIT, f"x-vectors differ by {err}")
     check({k: per["codec_vfs_mix60"][k] for k in CODEC_KERNELS}
           == codec_route(sigs["mix60"]), "the VFS upload's decodes")
+    check_cnn_launches(per["codec_vfs_mix60"], "the VFS with the codec")
     finals = {}
     for m in ("off", "on"):
         with env_set(ISS_UPLOAD_CODEC="1" if m == "on" else "0"):
@@ -3969,6 +4174,8 @@ def phase_codec(torch, dev, workdir, seg, vfs, files, wavs, models):
           "the codec differ on >0.1%")
     check({k: per["codec_online_mix600"][k] for k in CODEC_KERNELS}
           == codec_route(sigs["mix600"]), "the online groups' decodes")
+    check_cnn_launches(per["codec_online_mix600"],
+                       "the online segmenter with the codec")
     log(f"[codec] vfs(mix60) with the codec on {res['on']} equal to off; VBx "
         f"features bit-equal; {len(starts)} x-vectors rel L2 {err!r} "
         f"(limit {XVEC_REL_LIMIT}); launches {per['codec_vfs_mix60']}. "
@@ -4025,7 +4232,9 @@ from inaspeechsegmenter_tpu_torch import Segmenter
 from inaspeechsegmenter_tpu_torch.decode import viterbi as tv
 from inaspeechsegmenter_tpu_torch.dsp import codec, fe_kernel
 from inaspeechsegmenter_tpu_torch.export import seg2csv
+from inaspeechsegmenter_tpu_torch.models import layers
 from inaspeechsegmenter_tpu_torch.parallel import global_mesh, init_multihost
+""" + CNN_FORWARDS + r"""
 
 cfg = json.loads(sys.argv[1])
 rank = cfg["rank"]
@@ -4037,7 +4246,8 @@ wrappers = {"sidekit_fe": fe_kernel.sidekit_features,
             "viterbi": tv.viterbi_scan,
             "viterbi_general": tv.viterbi_scan_general,
             "unpack_bits": codec.unpack_bits,
-            "unpack_zero_elide": codec.unpack_zero_elide}
+            "unpack_zero_elide": codec.unpack_zero_elide,
+            "cnn_epilogue": layers.cnn_epilogue}
 seg = Segmenter("smn", True, ffmpeg=None, model_dir=cfg["models"],
                 allow_download=False)
 for w in wrappers.values():
@@ -4045,6 +4255,7 @@ for w in wrappers.values():
 seg2csv(seg(cfg["wav"]), cfg["csv"])
 torch.cuda.synchronize()
 launches = {k: w.launches for k, w in wrappers.items()}
+launches["cnn_forwards"] = _cnn["forwards"]
 dist.barrier()
 out = {"rank": rank, "init": ok, "sum": float(x[0]),
        "backend": dist.get_backend(), "world": dist.get_world_size(),
@@ -4120,7 +4331,7 @@ def phase_multihost(workdir, files, wavs, models):
         check(without_codec(r["launches"]) == {
             "sidekit_fe": 1, "viterbi": 3, "viterbi_general": 0},
             f"rank {r['rank']} launches {r['launches']}")
-        check_codec_launches(r["launches"], f"rank {r['rank']}")
+        check_routed_launches(r["launches"], f"rank {r['rank']}")
         for k, v in r["launches"].items():
             total[k] = total.get(k, 0) + v
         log(f"[multihost] rank {r['rank']} of {r['world']} ({r['backend']} "
@@ -4151,11 +4362,18 @@ def main():
     cuda_build.library()
     log(f"[build] {os.path.basename(lib)} built and loaded in "
         f"{time.perf_counter() - t0!r} s")
+    count_cnn_forwards()
 
     # the plain versions of the kernels compare on the card with TF32 off;
     # the port's own calls set their flags in scopes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if EPILOGUE_FLAG in sys.argv:
+        with tempfile.TemporaryDirectory() as workdir:
+            entry = phase_cnn_epilogue(torch, dev, workdir)
+        print(json.dumps({"kernels": [entry]}), flush=True)
+        print(gpu_line(), flush=True)
+        return 0
     if MESH_STEP_FLAG in sys.argv:
         with tempfile.TemporaryDirectory() as workdir:
             mesh_step_diagnosis(torch, dev, workdir, int(
@@ -4163,6 +4381,7 @@ def main():
         return 0
     kernels = [phase_features(torch, dev), phase_viterbi(torch, dev)]
     with tempfile.TemporaryDirectory() as workdir:
+        epilogue = phase_cnn_epilogue(torch, dev, workdir)
         seg, launches, files, wavs, models, per_file = phase_main(
             torch, dev, workdir)
         vfs, params, launches_vfs, per_vfs_file, speech_rate = phase_vfs(
@@ -4187,6 +4406,7 @@ def main():
         per_ref["multihost"] = phase_multihost(workdir, files, wavs, models)
     kernels.append(general)
     kernels += codec_entries
+    kernels.append(epilogue)
     for k in kernels:
         name = k["name"]
         earlier = {"segmentation": per_file, "vfs": per_vfs_file,

@@ -34,7 +34,14 @@ an empty value means the default):
   each call in a trainable one.
 
 Convolutions and matmuls go to cuDNN / cuBLAS, as XLA ran them outside any
-Pallas kernel in the JAX package.
+Pallas kernel in the JAX package.  What an inference model runs between
+one convolution and the next (the bias, ReLU, BatchNormalization, a VALID
+max pool, the next conv's SAME border) is one hand kernel,
+``cnn_epilogue`` (``csrc/cnn_epilogue.cu``), where ``native.ImportedModel``
+finds such a chain (``ConvChain``).  It writes channels-last, the layout
+cuDNN keeps from a one-channel Keras input (its permuted view has strides
+PyTorch reads as channels-last) and Keras order, which Flatten reshapes
+without a copy.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ import threading
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils import cuda_build
 
 CNN_TIERS = {"highest": "highest", "high": "high", "default": "bf16",
              "bf16": "bf16"}
@@ -275,7 +284,8 @@ class _Weighted(nn.Module):
 
     def __init__(self, cfg, weight, bias, tier, trainable=False):
         super().__init__()
-        self.act = _activation(cfg.get("activation"))
+        self.activation = cfg.get("activation")
+        self.act = _activation(self.activation)
         self.tier = tier
         _register(self, "weight", weight, trainable)
         _register(self, "bias", bias, trainable)
@@ -283,11 +293,14 @@ class _Weighted(nn.Module):
             "weight_bf16", weight.to(torch.bfloat16)
             if tier == "bf16" and not trainable else None)
 
-    def product(self, fn, x):
+    def product(self, fn, x, bias=True):
+        """``fn(x, weight, bias)`` at the layer's tier; ``bias=False``
+        leaves the bias out (an epilogue adds it)."""
         weight_bf16 = self.weight_bf16
         if weight_bf16 is None and self.tier == "bf16":
             weight_bf16 = self.weight.to(torch.bfloat16)
-        return tiered_product(fn, x, self.weight, self.bias, weight_bf16,
+        return tiered_product(fn, x, self.weight,
+                              self.bias if bias else None, weight_bf16,
                               self.channel_dim)
 
 
@@ -303,15 +316,28 @@ class Conv2D(_Weighted):
         if self.padding not in ("SAME", "VALID"):
             raise NotImplementedError(f"Conv2D padding {self.padding!r}")
 
-    def forward(self, x):
-        if self.padding == "SAME":
-            kh, kw = self.weight.shape[2:]
-            eff = ((kh - 1) * self.dilation[0] + 1,
-                   (kw - 1) * self.dilation[1] + 1)
-            x = _same_pad2d(x, eff, self.stride)
-        return self.act(self.product(
+    def border(self, h, w):
+        """(top, bottom, left, right): the zeros SAME padding puts around
+        an (h, w) input; None for VALID."""
+        if self.padding != "SAME":
+            return None
+        kh, kw = self.weight.shape[2:]
+        return (*_same_pads(h, (kh - 1) * self.dilation[0] + 1,
+                            self.stride[0]),
+                *_same_pads(w, (kw - 1) * self.dilation[1] + 1,
+                            self.stride[1]))
+
+    def convolve(self, x, bias=True):
+        """The convolution of ``x``, padded already, with no activation."""
+        return self.product(
             lambda v, w, b: F.conv2d(v, w, b, self.stride, 0, self.dilation),
-            x))
+            x, bias)
+
+    def forward(self, x):
+        pads = self.border(*x.shape[2:])
+        if pads is not None:
+            x = F.pad(x, (pads[2], pads[3], pads[0], pads[1]))
+        return self.act(self.convolve(x))
 
 
 class DepthwiseConv2D(_Weighted):
@@ -373,7 +399,12 @@ class Dense(_Weighted):
 class BatchNorm(nn.Module):
     """Inference batch norm along the configured Keras axis.  With
     ``trainable`` all four arrays, the moving statistics included, are
-    parameters, as the JAX trainer differentiates every array of a model."""
+    parameters, as the JAX trainer differentiates every array of a model.
+
+    An inference layer keeps ``inv = rsqrt(var + eps)`` (not saved with
+    the state), made again by the same torch call wherever the module
+    moves, so the forward and ``cnn_epilogue`` read the value the device's
+    own ``rsqrt`` gives; a trainable layer computes it at each call."""
 
     def __init__(self, cfg, gamma, beta, mean, var, trainable=False):
         super().__init__()
@@ -383,13 +414,24 @@ class BatchNorm(nn.Module):
         for name, t in (("gamma", gamma), ("beta", beta), ("mean", mean),
                         ("var", var)):
             _register(self, name, t, trainable)
+        self.register_buffer("inv", None if trainable else self._inv(),
+                             persistent=False)
+
+    def _inv(self):
+        return torch.rsqrt(self.var + self.eps)
+
+    def _apply(self, fn, *args, **kwargs):
+        super()._apply(fn, *args, **kwargs)
+        if self.inv is not None:
+            self.inv = self._inv()
+        return self
 
     def forward(self, x):
         shape = [1] * x.dim()
         d = keras_dim(self.axis, x.dim())
         shape[d] = x.shape[d]
-        out = (x - self.mean.reshape(shape)) * torch.rsqrt(
-            self.var.reshape(shape) + self.eps)
+        inv = self._inv() if self.inv is None else self.inv
+        out = (x - self.mean.reshape(shape)) * inv.reshape(shape)
         if self.gamma is not None:
             out = out * self.gamma.reshape(shape)
         if self.beta is not None:
@@ -484,7 +526,8 @@ class ZeroPadding2D(nn.Module):
 class Activation(nn.Module):
     def __init__(self, cfg):
         super().__init__()
-        self.act = _activation(cfg.get("activation"))
+        self.activation = cfg.get("activation")
+        self.act = _activation(self.activation)
 
     def forward(self, x):
         return self.act(x)
@@ -557,6 +600,199 @@ class Concatenate(nn.Module):
 
     def forward(self, *xs):
         return torch.cat(xs, dim=keras_dim(self.axis, xs[0].dim()))
+
+
+# -- the conv block's epilogue ----------------------------------------------
+
+# the max-pool windows csrc/cnn_epilogue.cu is built for: the patch CNNs'
+EPILOGUE_POOLS = ((2, 1), (2, 2))
+
+
+def pooled_size(h, w, pool):
+    """(h, w) after a VALID ``pool`` (ph, pw, sph, spw); None leaves
+    them."""
+    if pool is None:
+        return h, w
+    ph, pw, sph, spw = pool
+    return (h - ph) // sph + 1, (w - pw) // spw + 1
+
+
+def cnn_epilogue_plain(y, bias=None, relu=(False, False), affine=None,
+                       pool=None, pads=None):
+    """The plain version of ``cnn_epilogue``: the unfused layers' own
+    operations, in their order."""
+    chan = (1, -1, 1, 1)
+    v = y if bias is None else y + bias.reshape(chan)
+    if relu[0]:
+        v = F.relu(v)
+    if affine is not None:
+        mean, inv, gamma, beta = affine
+        v = (v - mean.reshape(chan)) * inv.reshape(chan)
+        if gamma is not None:
+            v = v * gamma.reshape(chan)
+        if beta is not None:
+            v = v + beta.reshape(chan)
+    if relu[1]:
+        v = F.relu(v)
+    if pool is not None:
+        v = F.max_pool2d(v, pool[:2], pool[2:])
+    if pads is not None:
+        v = F.pad(v, (pads[2], pads[3], pads[0], pads[1]))
+    return v.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
+def cnn_epilogue(y, bias=None, relu=(False, False), affine=None, pool=None,
+                 pads=None):
+    """Everything between a conv and the next layer's input, in one pass.
+
+    :param y: (B, C, H, W) float32 conv output, without its bias;
+        NCHW-contiguous or channels-last.
+    :param bias: (C,) or None.
+    :param relu: (a ReLU before the affine, one after it).
+    :param affine: (mean, inv, gamma, beta), each (C,) (gamma, beta may be
+        None): inference BatchNormalization, ``((v - mean) * inv) * gamma
+        + beta``; or None.
+    :param pool: (ph, pw, sph, spw), a VALID max pool whose window is
+        one of ``EPILOGUE_POOLS`` on the card; or None.
+    :param pads: (top, bottom, left, right) zeros written around the
+        result, the next SAME conv's border; or None.
+    :return: (B, C, Hp + top + bottom, Wp + left + right) float32,
+        channels-last (the view of a (B, H, W, C) buffer): the layout the
+        next conv runs in, and Keras order, which ``Flatten`` reshapes
+        without a copy.
+
+    A CPU tensor runs ``cnn_epilogue_plain``; a CUDA tensor launches the
+    kernel (``csrc/cnn_epilogue.cu``) or raises.
+    """
+    if y.device.type == "cpu":
+        return cnn_epilogue_plain(y, bias, relu, affine, pool, pads)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    if y.dtype != torch.float32 or y.dim() != 4:
+        raise ValueError(f"conv output must be a float32 (B, C, H, W) "
+                         f"tensor, got {y.dtype} {tuple(y.shape)}")
+    if not (y.is_contiguous()
+            or y.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError(f"conv output layout not taken: strides "
+                         f"{y.stride()} (NCHW or channels-last only)")
+    if y.requires_grad:
+        raise ValueError("cnn_epilogue has no backward; a model that "
+                         "trains runs the unfused layers")
+    b, c, h, w = y.shape
+    mean, inv, gamma, beta = affine if affine is not None else (None,) * 4
+    for t in (bias, mean, inv, gamma, beta):
+        if t is not None and (t.device != y.device or t.dtype != y.dtype
+                              or tuple(t.shape) != (c,)
+                              or not t.is_contiguous()):
+            raise ValueError(f"per-channel tensors must be contiguous "
+                             f"float32 ({c},) on {y.device}")
+    ph, pw, sph, spw = pool if pool is not None else (1, 1, 1, 1)
+    if (ph, pw) not in EPILOGUE_POOLS + ((1, 1),):
+        raise ValueError(f"a {ph}x{pw} pool: the kernel is built for the "
+                         f"windows {EPILOGUE_POOLS} and none")
+    if h < ph or w < pw:
+        raise ValueError(f"a {ph}x{pw} pool over a {h}x{w} input")
+    hp, wp = pooled_size(h, w, pool)
+    pt, pb, pl, pr = pads if pads is not None else (0, 0, 0, 0)
+    out = torch.empty((b, pt + hp + pb, pl + wp + pr, c), dtype=y.dtype,
+                      device=y.device)
+    if y.numel():
+        lib = cuda_build.library()
+        with torch.cuda.device(y.device):
+            rc = lib.iss_cnn_epilogue(
+                y.data_ptr(), b, c, h, w, *y.stride(),
+                *(None if t is None else t.data_ptr()
+                  for t in (bias, mean, inv, gamma, beta)),
+                int(relu[0]), int(relu[1]), ph, pw, sph, spw,
+                out.data_ptr(), pt, pb, pl, pr,
+                torch.cuda.current_stream(y.device).cuda_stream)
+        cuda_build.check_launch("cnn_epilogue", rc)
+        cuda_build.count_launch(cnn_epilogue)
+    return out.permute(0, 3, 1, 2)
+
+
+cnn_epilogue.launches = 0
+
+
+def _is_relu(layer):
+    if isinstance(layer, Activation):
+        return layer.activation == "relu"
+    return (isinstance(layer, ReLU) and layer.max_value is None
+            and layer.slope == 0.0 and layer.threshold == 0.0)
+
+
+class ConvChain:
+    """``Conv2D -> [ReLU] -> [BatchNormalization on the channel axis] ->
+    [ReLU] -> [MaxPooling2D VALID]`` of an inference model, run as one
+    step: the cuDNN convolution without its bias, then ``cnn_epilogue``.
+
+    Built by ``native.ImportedModel``'s plan, which feeds it the layers
+    that follow the conv (``take``) and sets ``next_conv``, the fused SAME
+    conv that reads its output alone, whose border it writes (that
+    chain's ``padded_input``).  Holds the model's own layers, not copies:
+    it reads their tensors at each call, and runs none of their forwards
+    (a forward hook on a fused layer is not called).
+    """
+
+    def __init__(self, conv):
+        self.conv = conv
+        self.relu = [conv.activation == "relu", False]
+        self.bn = None
+        self.pool = None
+        self.padded_input = False
+        self.next_conv = None
+
+    @staticmethod
+    def start(layer):
+        """A chain from ``layer``, or None where it is no Conv2D whose
+        activation the epilogue runs."""
+        if type(layer) is Conv2D and layer.activation in (None, "linear",
+                                                          "relu"):
+            return ConvChain(layer)
+        return None
+
+    def take(self, layer):
+        """Add ``layer``, the chain's next step, where the epilogue runs
+        it there -> whether it did."""
+        if self.pool is not None:
+            return False
+        if isinstance(layer, MaxPool2D):
+            if (layer.padding != "VALID"
+                    or tuple(layer.pool) not in EPILOGUE_POOLS):
+                return False
+            self.pool = (*layer.pool, *layer.stride)
+        elif _is_relu(layer):
+            slot = int(self.bn is not None)     # before or after the affine
+            if self.relu[slot]:
+                return False
+            self.relu[slot] = True
+        elif isinstance(layer, BatchNorm):
+            if (self.bn is not None or layer.inv is None
+                    or keras_dim(layer.axis, 4) != 1):
+                return False
+            self.bn = layer
+        else:
+            return False
+        return True
+
+    def fuses(self):
+        """Whether the epilogue has more to do than the conv's bias."""
+        return any(self.relu) or self.bn is not None or self.pool is not None
+
+    def __call__(self, x):
+        conv = self.conv
+        pads = None if self.padded_input else conv.border(*x.shape[2:])
+        if pads is not None:
+            x = F.pad(x, (pads[2], pads[3], pads[0], pads[1]))
+        y = conv.convolve(x, bias=False)
+        bn = self.bn
+        affine = None if bn is None else (bn.mean, bn.inv, bn.gamma, bn.beta)
+        border = None
+        if self.next_conv is not None:
+            border = self.next_conv.border(
+                *pooled_size(*y.shape[2:], self.pool))
+        return cnn_epilogue(y, conv.bias, tuple(self.relu), affine,
+                            self.pool, border)
 
 
 # layers with a conv or matmul: Keras class -> module(cfg, weight, bias, tier)

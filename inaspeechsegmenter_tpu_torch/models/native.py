@@ -7,7 +7,10 @@ outputs, inbound lists, merges) over the layers of ``layers.py``.  A
 sequential chain is the graph whose every layer reads the one before, so
 the patch CNNs, released or synthetic, take the same walk: rank-4 values
 stay channels-first for cuDNN from the input to Flatten, and each value
-is freed after the last layer that reads it.
+is freed after the last layer that reads it.  An inference model runs each
+chain ``Conv2D -> [ReLU] -> [BatchNormalization] -> [ReLU] ->
+[MaxPooling2D VALID]`` whose values no other layer reads as one step
+(``layers.ConvChain``: the conv, then one epilogue kernel).
 
 Weights come in the Keras layout (``read_h5``, ``load_native``, the JAX
 package's arrays); ``params_from_jax`` turns them into this module's
@@ -19,6 +22,8 @@ re-exported here.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -132,8 +137,11 @@ class ImportedModel(nn.Module):
 
     :param trainable: hold every weight, bias and BatchNormalization array
         (the moving statistics too) as an ``nn.Parameter``; the bf16 tier
-        then casts each weight at call time.  The default keeps them as
-        buffers with the bf16 copies made once.
+        then casts each weight at call time, and no chain is fused.  The
+        default keeps them as buffers with the bf16 copies made once.
+
+    ``fused_blocks``: the conv chains each forward runs through
+    ``layers.cnn_epilogue``.
     """
 
     def __init__(self, spec, params, *, trainable=False):
@@ -169,13 +177,14 @@ class ImportedModel(nn.Module):
         self.outputs = list(spec.get("outputs") or [prev])
         self.layers = nn.ModuleList(mods)
         self._plan = plan
-        # free each value after the last step that reads it
-        last = {}
-        for i, (_, _, _, srcs) in enumerate(plan):
-            for s in srcs:
-                last[s] = i
-        self._free = [[s for s, j in last.items() if j == i
-                       and s not in self.outputs] for i in range(len(plan))]
+        # the forward's steps: the plan's, with a ConvChain in the place
+        # of a layer index where one runs a chain
+        steps = plan if trainable else _fuse_chains(plan, mods, self.outputs)
+        self._steps = steps
+        chains = [run for _, run, _, _ in steps
+                  if isinstance(run, L.ConvChain)]
+        self.fused_blocks = len(chains)
+        self._free = _free_lists(steps, self.outputs)
 
     @classmethod
     def from_h5(cls, path):
@@ -214,17 +223,78 @@ class ImportedModel(nn.Module):
         xs = list(x) if isinstance(x, (list, tuple)) else [x]
         values = dict(zip(self.inputs or ["<input>"], map(L.from_keras, xs)))
         with L.precision_scope(self.precision):
-            for i, (name, index, merge, srcs) in enumerate(self._plan):
+            for i, (name, run, merge, srcs) in enumerate(self._steps):
                 ins = [values[s] for s in srcs]
-                if index is None:
+                if run is None:
                     values[name] = ins[0]
                 else:
-                    layer = self.layers[index]
-                    values[name] = layer(*ins) if merge else layer(ins[0])
+                    # a layer is looked up at each call: the trainer puts
+                    # split layers in the place of its Dense layers
+                    fn = run if isinstance(run, L.ConvChain) \
+                        else self.layers[run]
+                    values[name] = fn(*ins) if merge else fn(ins[0])
                 for s in self._free[i]:
                     del values[s]
         outs = [L.to_keras(values[n]) for n in self.outputs]
         return outs[0] if len(outs) == 1 else outs
+
+
+def _free_lists(steps, outputs):
+    """For each step, the values to free after it: those it reads last."""
+    last = {}
+    for i, (_, _, _, srcs) in enumerate(steps):
+        for s in srcs:
+            last[s] = i
+    return [[s for s, j in last.items() if j == i and s not in outputs]
+            for i in range(len(steps))]
+
+
+def _fuse_chains(plan, mods, outputs):
+    """The ``plan`` with each conv chain that ``layers.ConvChain`` runs as
+    one step: a Conv2D, then the steps that each read only the value
+    before (read by no other step and no model output), in the order the
+    graph gives them, while the chain takes them.  The rest runs as it
+    was.  A chain whose one reader is a fused SAME conv writes that conv's
+    border."""
+    def readers(steps):
+        return Counter(s for _, _, _, srcs in steps for s in srcs)
+
+    reads = readers(plan)
+
+    def next_layer(i):
+        """The layer of step i + 1, where that step alone reads step i's
+        value."""
+        name = plan[i][0]
+        if (i + 1 < len(plan) and reads[name] == 1 and name not in outputs
+                and plan[i + 1][3] == [name] and plan[i + 1][1] is not None
+                and not plan[i + 1][2]):
+            return mods[plan[i + 1][1]]
+        return None
+
+    out, i = [], 0
+    while i < len(plan):
+        name, index, merge, srcs = plan[i]
+        chain = None if merge or index is None \
+            else L.ConvChain.start(mods[index])
+        j = i
+        while chain is not None and (nxt := next_layer(j)) is not None \
+                and chain.take(nxt):
+            j += 1
+        if chain is not None and chain.fuses():
+            out.append((plan[j][0], chain, False, srcs))
+        else:
+            out.append(plan[i])
+            j = i
+        i = j + 1
+    reads = readers(out)
+    for (name, run, _, _), nxt in zip(out, out[1:] + [None]):
+        if (not isinstance(run, L.ConvChain) or nxt is None
+                or reads[name] != 1 or name in outputs or nxt[3] != [name]):
+            continue
+        if isinstance(nxt[1], L.ConvChain) and nxt[1].conv.padding == "SAME":
+            run.next_conv = nxt[1].conv
+            nxt[1].padded_input = True
+    return out
 
 
 def _build_layer(cname, cfg, tensors, tier, trainable):

@@ -169,6 +169,11 @@ _SIGNATURES = {
     # (buf, pool_rows, nb, out, grid, stream)
     "iss_unpack_zero_elide": [_P, ctypes.c_longlong, ctypes.c_int, _P,
                               ctypes.c_int, _P],
+    # (x, B, C, H, W, sb, sc, sh, sw, bias, mean, inv, gamma, beta, relu1,
+    #  relu2, ph, pw, sph, spw, out, pt, pb, pl, pr, stream)
+    "iss_cnn_epilogue": [_P, *[ctypes.c_int] * 4, *[ctypes.c_longlong] * 4,
+                         *[_P] * 5, *[ctypes.c_int] * 6, _P,
+                         *[ctypes.c_int] * 4, _P],
 }
 
 

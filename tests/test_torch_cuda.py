@@ -65,6 +65,16 @@ launch; with ``ISS_UPLOAD_CODEC=1`` the frontend's features (whole-file
 and group launches), the kept PCM and the Segmenter's labels equal the
 raw upload's, the pinned group upload stays free of host syncs, and the
 VBx frontend's own packed upload gives the raw upload's features.
+
+The CNN blocks' epilogue kernel (``csrc/cnn_epilogue.cu``): bit-equal to
+its plain version on the card at every block of the VAD and gender CNNs,
+batches 1, 1,023 and 1,024, NCHW and channels-last conv outputs with a
+NaN, ties and signed zeros; the next conv's border zeros and the Keras
+(channels-last) order that lets Flatten reshape without a copy; the
+chains of the plans that stop early (no pool, no BatchNorm) bit-equal
+too, and a pool window the kernel is not built for refused; 4 launches a
+forward, the fused forward within 1e-5 of the unfused one on the card,
+none from a trainable model.
 """
 
 import numpy as np
@@ -1438,3 +1448,193 @@ def test_segmenter_and_vbx_with_codec_equal_raw(dev, small_models,
     assert seg.segment_signal(sig) == off
     assert torch.equal(fe._features_i16(sig, len(sig)), fea0)
     assert codec.unpack_bits.launches - before == 2
+
+
+# -- the conv blocks' epilogue kernel (csrc/cnn_epilogue.cu) ------------------
+
+def _epilogue_params(nmel, nout, seed):
+    """A full-width synthetic patch CNN with non-trivial biases and
+    BatchNorm statistics (negative scales among them)."""
+    from inaspeechsegmenter_tpu_torch.models.synthetic import build_patch_cnn
+
+    spec, params = build_patch_cnn(nmel, nout, seed, "full")
+    rng = np.random.default_rng(seed)
+    for i in range(4):
+        c = params[f"bn{i}"][0].shape[0]
+        params[f"conv{i}"][1] = rng.normal(0, 0.1, c).astype(np.float32)
+        params[f"bn{i}"] = [rng.uniform(-1.5, 1.5, c).astype(np.float32),
+                            rng.normal(0, 0.1, c).astype(np.float32),
+                            rng.normal(0, 0.1, c).astype(np.float32),
+                            rng.uniform(0.5, 2.0, c).astype(np.float32)]
+    return spec, params
+
+
+def _epilogue_model(nmel, nout, seed, dev):
+    """``_epilogue_params``' CNN on the card."""
+    from inaspeechsegmenter_tpu_torch.models.native import ImportedModel
+
+    spec, params = _epilogue_params(nmel, nout, seed)
+    return spec, params, ImportedModel(spec, params).to(dev)
+
+
+def _epilogue_args(chain, y):
+    from inaspeechsegmenter_tpu_torch.models import layers as L
+
+    bn = chain.bn
+    border = None if chain.next_conv is None else chain.next_conv.border(
+        *L.pooled_size(y.shape[2], y.shape[3], chain.pool))
+    return (chain.conv.bias, tuple(chain.relu),
+            (bn.mean, bn.inv, bn.gamma, bn.beta), chain.pool, border)
+
+
+@pytest.mark.parametrize("nmel,nout,seed", [(21, 3, 1), (24, 2, 2)])
+def test_cnn_epilogue_kernel_bit_equal(dev, nmel, nout, seed):
+    """At every block of the VAD and gender CNNs, batches 1, 1,023 and
+    1,024, channels-last and NCHW-contiguous conv outputs (a NaN, ties and
+    signed zeros in them): the kernel equals the plain version on the card
+    bit for bit, the next conv's border is zeros, the output is in Keras
+    order (Flatten reshapes the last block's without a copy), and a
+    launch is counted a call."""
+    from inaspeechsegmenter_tpu_torch.models import layers as L
+
+    _, _, model = _epilogue_model(nmel, nout, seed, dev)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1024, 68, nmel, 1)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        for b in (1, 1023, 1024):
+            v = L.from_keras(x[:b])
+            for _, fn, _, _ in model._steps:
+                if not isinstance(fn, L.ConvChain):
+                    break
+                pads = None if fn.padded_input else fn.conv.border(
+                    *v.shape[2:])
+                xin = v if pads is None else torch.nn.functional.pad(
+                    v, (pads[2], pads[3], pads[0], pads[1]))
+                y0 = fn.conv.convolve(xin, bias=False)
+                y0[0, 0, 0, :3] = torch.tensor([float("nan"), 0.0, -0.0])
+                y0[-1, -1, :2, 0] = y0[-1, -1, 2, 0]
+                args = _epilogue_args(fn, y0)
+                want = L.cnn_epilogue_plain(y0, *args)
+                assert y0.is_contiguous(memory_format=torch.channels_last)
+                for fmt in (torch.channels_last, torch.contiguous_format):
+                    y = y0.contiguous(memory_format=fmt)
+                    before = L.cnn_epilogue.launches
+                    got = L.cnn_epilogue(y, *args)
+                    torch.cuda.synchronize()
+                    assert L.cnn_epilogue.launches == before + 1
+                    assert got.shape == want.shape
+                    assert got.stride() == want.stride()
+                    np.testing.assert_array_equal(got.cpu().numpy(),
+                                                  want.cpu().numpy())
+                    if args[4] is not None:
+                        t, bt, le, r = args[4]
+                        ring = got.clone()
+                        ring[:, :, t:got.shape[2] - bt,
+                             le:got.shape[3] - r] = 0
+                        assert not ring.any()
+                    if fn.next_conv is None:
+                        flat = L.Flatten()(got)
+                        assert flat.data_ptr() == got.data_ptr()
+                        np.testing.assert_array_equal(
+                            flat.cpu().numpy(),
+                            want.permute(0, 2, 3, 1).reshape(b, -1)
+                            .cpu().numpy())
+                v = fn(v)
+
+
+def _unfused_model(spec, params, dev, monkeypatch):
+    from inaspeechsegmenter_tpu_torch.models import native
+
+    with monkeypatch.context() as m:
+        m.setattr(native, "_fuse_chains", lambda plan, mods, outputs: plan)
+        return native.ImportedModel(spec, params).to(dev)
+
+
+def test_cnn_epilogue_runs_four_launches_a_forward(dev, monkeypatch):
+    """The fused forward launches the kernel 4 times a batch, and holds
+    the unfused forward on the card within 1e-5 (cuDNN may take another
+    conv algorithm without the bias); a trainable model launches none."""
+    from inaspeechsegmenter_tpu_torch.models import layers as L
+    from inaspeechsegmenter_tpu_torch.models import native
+
+    spec, params, model = _epilogue_model(21, 3, 1, dev)
+    assert model.fused_blocks == 4
+    unfused = _unfused_model(spec, params, dev, monkeypatch)
+    trainable = native.ImportedModel(spec, params, trainable=True).to(dev)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1024, 68, 21, 1)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        before = L.cnn_epilogue.launches
+        got = model(x)
+        assert L.cnn_epilogue.launches == before + 4
+        want = unfused(x)
+        trainable(x)
+    assert L.cnn_epilogue.launches == before + 4
+    err = float((got - want).abs().max())
+    assert err <= 1e-5, err
+
+
+def _no_bn(spec, params):
+    spec["layers"][7]["config"]["axis"] = 1  # bn2 over the 17 rows
+    params["bn2"] = [np.repeat(p[:1], 17) for p in params["bn2"]]
+    return "conv2"
+
+
+def _no_pool(spec, params):
+    spec["layers"][11]["config"]["padding"] = "same"
+    return "bn3"
+
+
+@pytest.mark.parametrize("case", [_no_bn, _no_pool])
+def test_cnn_epilogue_chains_that_stop_early(dev, monkeypatch, case):
+    """Plans whose chains stop early, at full width: a chain without its
+    BatchNorm (bn2 on the rows: conv2 and its ReLU, no border) and one
+    without a pool (pool3 SAME: the kernel's 1x1 window).  Each chain's
+    kernel equals the plain version bit for bit at batches 1 and 1,024,
+    from channels-last and NCHW conv outputs, and the model holds the
+    unfused one within 1e-5.  A window the kernel is not built for is
+    refused."""
+    from inaspeechsegmenter_tpu_torch.models import layers as L
+    from inaspeechsegmenter_tpu_torch.models import native
+
+    spec, params = _epilogue_params(21, 3, 1)
+    end = case(spec, params)
+    model = native.ImportedModel(spec, params).to(dev)
+    chains = {name: fn for name, fn, _, _ in model._steps
+              if isinstance(fn, L.ConvChain)}
+    assert model.fused_blocks == 4 and end in chains
+    assert (chains[end].bn is None) == (case is _no_bn)
+    assert chains[end].pool is None
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1024, 68, 21, 1)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        for b in (1, 1024):
+            v = L.from_keras(x[:b])
+            for name, run, _, _ in model._steps:
+                fn = run if isinstance(run, L.ConvChain) \
+                    else model.layers[run]
+                if isinstance(fn, L.ConvChain):
+                    pads = None if fn.padded_input else fn.conv.border(
+                        *v.shape[2:])
+                    xin = v if pads is None else torch.nn.functional.pad(
+                        v, (pads[2], pads[3], pads[0], pads[1]))
+                    y0 = fn.conv.convolve(xin, bias=False)
+                    bn = fn.bn
+                    args = (fn.conv.bias, tuple(fn.relu), None if bn is None
+                            else (bn.mean, bn.inv, bn.gamma, bn.beta),
+                            fn.pool, None if fn.next_conv is None
+                            else fn.next_conv.border(*L.pooled_size(
+                                *y0.shape[2:], fn.pool)))
+                    want = L.cnn_epilogue_plain(y0, *args)
+                    for fmt in (torch.channels_last, torch.contiguous_format):
+                        got = L.cnn_epilogue(y0.contiguous(memory_format=fmt),
+                                             *args)
+                        assert got.stride() == want.stride()
+                        np.testing.assert_array_equal(got.cpu().numpy(),
+                                                      want.cpu().numpy())
+                v = fn(v)
+        err = float((model(x) - _unfused_model(spec, params, dev,
+                                               monkeypatch)(x)).abs().max())
+    assert err <= 1e-5, err
+    with pytest.raises(ValueError, match="3x3 pool"):
+        L.cnn_epilogue(y0.contiguous(), pool=(3, 3, 3, 3))

@@ -127,7 +127,8 @@ def test_xvec_tiers_on_the_cpu(xparams, monkeypatch):
 def test_forward_restores_tf32_flags(cnn, xparams, monkeypatch, matmul,
                                      cudnn):
     """Each forward sets its tier's flags for itself (seen from inside by a
-    hook) and restores the process's flags."""
+    hook on the CNN's first Dense, which runs after its four fused blocks)
+    and restores the process's flags."""
     spec, params, x = cnn
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", matmul)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", cudnn)
@@ -140,7 +141,9 @@ def test_forward_restores_tf32_flags(cnn, xparams, monkeypatch, matmul,
     for tier in ("high", "highest"):
         monkeypatch.setenv("ISS_CNN_PRECISION", tier)
         model = ImportedModel(spec, params)
-        model.layers[0].register_forward_hook(hook)
+        assert model.fused_blocks == 4
+        next(m for m in model.layers if isinstance(m, tl.Dense)) \
+            .register_forward_hook(hook)
         _run(model, x[:2])
         net = tres.ResNetXVector(*TINY).load_jax_params(xparams)
         net.set_precision(tier).layer1[0].register_forward_hook(hook)
