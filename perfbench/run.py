@@ -146,7 +146,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", overrides=None):
     import numpy as np
     import torch
 
-    from perfbench import counts, signals, spec, weights
+    from perfbench import counts, signals, spans, spec, weights
 
     bench = spec.benchmark()
     overrides = overrides or {}
@@ -187,7 +187,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", overrides=None):
 
         red, rec = None, None
         records = []
-        launched0 = tr.launches()
+        launched0 = tr.launches(cfg)
         system.start_capture()
         if not trace:
             rec = traffic.run(ctx, state, seconds)
@@ -195,13 +195,16 @@ def run_cell(cell, seed, seconds, trace, device="cuda", overrides=None):
         else:
             for attempt in range(3):
                 d0 = system.decode_seconds()
+                s0 = spans.snapshot()
                 span = min(seconds, TRACE_SECONDS) / 2 ** attempt
                 rec, prof, window, launched = tr.traced(
-                    lambda: traffic.run(ctx, state, span), cuda)
+                    lambda: traffic.run(ctx, state, span), cuda, cfg)
                 records.append(rec)
                 red = tr.reduce(prof, window, launched)
+                red["spans"] = spans.reduce_spans(prof)
                 del prof
                 d1 = system.decode_seconds()
+                red["program"] = spans.delta(s0, spans.snapshot())
                 info.append(f"trace attempt {attempt}: {window:.3f} s, "
                             f"launches {launched}, records "
                             + str({k: tr.kernel_seconds(red, k)[0]
@@ -209,6 +212,12 @@ def run_cell(cell, seed, seconds, trace, device="cuda", overrides=None):
                 if red["complete"]:
                     break
             red["decode_s"] = None if d0 is None else d1 - d0
+            info.append("program spans in the trace (device s, host s, "
+                        "calls): " + json.dumps(
+                            {k: [v["device_s"], v["host_s"], v["calls"]]
+                             for k, v in sorted(red["spans"].items())}))
+            info.append("program counters in the trace: "
+                        + json.dumps(red["program"]["counters"]))
         traffic.close(state)
         if cuda:
             torch.cuda.synchronize()
@@ -218,7 +227,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", overrides=None):
         info.append("system: " + json.dumps(system.describe()))
         info.append("launches a file in the window: " + json.dumps(
             {k: (v - launched0[k]) / max(n_done, 1)
-             for k, v in tr.launches().items()}))
+             for k, v in tr.launches(cfg).items()}))
 
         instances = [i for r in records for i in r["instances"]]
         ok = [i for i in instances if i["ok"]]

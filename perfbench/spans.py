@@ -13,11 +13,10 @@ reduced trace:
   benchmark's profiler records the thread that drives the cell's calls
   alone, so these are that thread's spans.
 
-``run.py`` does not call this module yet: the lines that take both
-readings in its traced attempt, and the readers of the metrics built on
-them, are for a later change to the benchmark (``PERF.md``, Open
-questions).  Where a reduced trace lacks the readings, the accessors
-return None.
+``run.py``'s traced attempt takes both readings (``red["spans"]``,
+``red["program"]``); a metric's reader reads them through ``host_s``,
+``device_s`` and ``counter``.  Where a reduced trace lacks the readings,
+the accessors return None.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 ``BENCHMARK.json`` (at the root of the checkout) names the cells and the
 metrics; ``workloads/<cell>.json`` holds a cell's configuration, traffic
 generator and parameters, ``configs/<config>.json`` a configuration,
-``traffic/<generator>.py``, ``systems/<system>.py`` and
-``reference/<config>.py`` the code they name, and ``metrics/<metric>.py``
-the reader of each per-layer metric.  Adding a cell, a configuration or a
+``traffic/<generator>.py``, ``systems/<system>.py``,
+``reference/<config>.py`` and ``kinds/<kind>.py`` (a model's weights)
+the code they name, and ``metrics/<metric>.py`` the reader of each
+per-layer metric.  Adding a cell, a configuration, a model kind or a
 metric adds files and entries; no file here names one.
 """
 
@@ -38,8 +39,8 @@ def config(name):
 
 
 def module(kind, name):
-    """``perfbench.<kind>.<name>``: a traffic generator, a system or a
-    reference."""
+    """``perfbench.<kind>.<name>``: a traffic generator, a system, a
+    reference or a model kind."""
     return importlib.import_module(f"perfbench.{kind}.{name}")
 
 

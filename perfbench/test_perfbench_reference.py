@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from perfbench import signals, spec, tiny, weights
+from perfbench.kinds import patch_cnn
 from perfbench.reference import plain
 
 
@@ -84,7 +85,7 @@ def test_patch_cnn_equals_the_ports():
 
     cfg = spec.config("ina_smn_gender")
     m = dict(cfg["models"]["vad"], **tiny.SMALL_CNN)
-    layers, shapes = weights.patch_cnn_layers(m)
+    layers, _ = patch_cnn.layers(m)
     w = weights.make({"models": {"vad": m}}, 4, "cpu")["vad"]
     port = ImportedModel({"layers": layers, "inputs": None,
                           "outputs": None}, w["numpy"])

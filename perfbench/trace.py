@@ -5,7 +5,8 @@ the per-layer readers and the ``breakdown`` need.
 records): in a long process the profiler was found now and then to drop
 kernel records, so a window counts only when it holds as
 many records of each checked kernel as the port's launch counters say
-were launched; otherwise the run traces a shorter window.
+were launched; otherwise the run traces a shorter window.  The checked
+kernels are ``CHECKED`` and those a configuration names (``kernels``).
 """
 
 from __future__ import annotations
@@ -17,37 +18,53 @@ from collections import defaultdict
 SHORT_GAP_S = 50e-6       # idle gaps shorter than this are launch gaps
 
 
-def kernel_counters():
+# the kernels every window is checked for: {substring of the kernel's
+# name: "<module of the port>:<wrapper with a .launches counter>"}
+CHECKED = {"sidekit_fe_kernel": "dsp.fe_kernel:sidekit_features",
+           "viterbi_kernel": "decode.viterbi:viterbi_scan"}
+
+
+def kernel_counters(config=None):
     """The port's launch counters by the name of the kernel each
-    launches."""
-    from inaspeechsegmenter_tpu_torch.decode import viterbi
-    from inaspeechsegmenter_tpu_torch.dsp import fe_kernel
+    launches: ``CHECKED`` and the configuration's ``kernels``, which a
+    configuration that brings a kernel of its own names the same way."""
+    import importlib
 
-    return {"sidekit_fe_kernel": fe_kernel.sidekit_features,
-            "viterbi_kernel": viterbi.viterbi_scan}
+    out = {}
+    for key, where in dict(CHECKED, **(config or {}).get("kernels",
+                                                          {})).items():
+        mod, _, attr = where.partition(":")
+        wrapper = getattr(importlib.import_module(
+            "inaspeechsegmenter_tpu_torch." + mod), attr, None)
+        if not hasattr(wrapper, "launches"):
+            raise ValueError(f"kernels: {key!r} names {where!r}, which is "
+                             f"no wrapper of the port with a .launches "
+                             f"counter")
+        out[key] = wrapper
+    return out
 
 
-def launches():
-    return {k: w.launches for k, w in kernel_counters().items()}
+def launches(config=None):
+    return {k: w.launches for k, w in kernel_counters(config).items()}
 
 
-def traced(fn, cuda=True):
+def traced(fn, cuda=True, config=None):
     """``fn()`` under the profiler -> (fn's value, profiler, window
-    seconds, launch deltas).  ``cuda=False`` (the CPU tests) traces the
-    host alone."""
+    seconds, launch deltas of ``config``'s counters).  ``cuda=False``
+    (the CPU tests) traces the host alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     acts = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda
     sync()
-    before = launches()
+    before = launches(config)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         value = fn()
         sync()
         window = time.perf_counter() - t0
-    after = launches()
+    after = launches(config)
     return value, prof, window, {k: after[k] - before[k] for k in after}
 
 

@@ -6,6 +6,8 @@ drawn by one ``torch.Generator`` on the run's device in a few large calls
 released files use: Keras (HWIO kernels, (in, out) dense matrices,
 BatchNormalization as gamma, beta, moving mean, moving variance) for the
 patch CNNs and the MLP, and the VBx ResNet's own tree for the x-vector net.
+What a model's ``kind`` draws, and in what shapes, is the module
+``kinds/<kind>.py`` (``kinds/__init__.py``); a new kind is a new file.
 
 The port receives them through its public doors: the Keras models as
 native ``.npz`` checkpoints in a model directory (``model_dir=``), the
@@ -23,8 +25,6 @@ import os
 
 import numpy as np
 import torch
-
-STAGE_MULT = (1, 2, 4, 8)
 
 
 class _Draws:
@@ -48,57 +48,27 @@ class _Draws:
         return out
 
 
-def _bn_list(d, c):
+def bn_list(d, c):
+    """A BatchNormalization of ``c`` channels: gamma, beta, moving mean,
+    moving variance."""
     return [d.uniform((c,), 0.9, 1.1), d.normal((c,), 0.05),
             d.normal((c,), 0.05), d.uniform((c,), 0.9, 1.1)]
 
 
-def _layer(name, cls, **cfg):
+def keras_layer(name, cls, **cfg):
     return {"name": name, "class_name": cls,
             "config": dict(name=name, **cfg), "inbound": []}
 
 
-def patch_cnn_layers(m):
-    """Keras layer list of a patch CNN: [Conv2D(relu), BatchNormalization,
-    MaxPooling2D] per block, Flatten, Dense(relu), Dense(softmax)."""
-    out, shapes = [], []
-    cin, h, w = 1, 68, m["nmel"]
-    k = m["kernel"]
-    for i, (f, pool) in enumerate(zip(m["filters"], m["pools"])):
-        out.append(_layer(f"conv{i}", "Conv2D", filters=f,
-                          kernel_size=[k, k], strides=[1, 1],
-                          padding="same", activation="relu", use_bias=True))
-        shapes.append((f"conv{i}", "conv", (k, k, cin, f)))
-        out.append(_layer(f"bn{i}", "BatchNormalization", axis=-1,
-                          epsilon=m["bn_epsilon"], center=True, scale=True))
-        shapes.append((f"bn{i}", "bn", f))
-        out.append(_layer(f"pool{i}", "MaxPooling2D", pool_size=list(pool),
-                          strides=list(pool), padding="valid"))
-        cin, h, w = f, h // pool[0], w // pool[1]
-    out.append(_layer("flatten", "Flatten"))
-    out += [_layer("fc1", "Dense", units=m["dense"], activation="relu",
-                   use_bias=True),
-            _layer("out", "Dense", units=m["n_out"], activation="softmax",
-                   use_bias=True)]
-    shapes += [("fc1", "dense", (h * w * cin, m["dense"])),
-               ("out", "dense", (m["dense"], m["n_out"]))]
-    return out, shapes
-
-
-def mlp_layers(m):
-    out = [_layer("fc1", "Dense", units=m["hidden"], activation="relu",
-                  use_bias=True),
-           _layer("out", "Dense", units=1, activation="sigmoid",
-                  use_bias=True)]
-    return out, [("fc1", "dense", (m["in"], m["hidden"])),
-                 ("out", "dense", (m["hidden"], 1))]
-
-
-def _keras_params(shapes, d, m):
+def keras_params(shapes, d, m):
+    """Keras arrays of ``shapes`` ((name, "conv" | "dense" | "bn",
+    shape)): He-normal kernels (``fc1`` times ``input_gain``, ``out``
+    times ``out_gain``), small normal biases, ``out_bias`` added to the
+    output layer's."""
     params = {}
     for name, kind, shape in shapes:
         if kind == "bn":
-            params[name] = _bn_list(d, shape)
+            params[name] = bn_list(d, shape)
             continue
         gain = {"fc1": m.get("input_gain", 1.0),
                 "out": m.get("out_gain", 1.0)}.get(name, 1.0)
@@ -111,7 +81,8 @@ def _keras_params(shapes, d, m):
     return params
 
 
-def _count(shapes):
+def keras_count(shapes):
+    """(normal, uniform) draws ``keras_params`` takes for ``shapes``."""
     n = u = 0
     for _, kind, shape in shapes:
         if kind == "bn":
@@ -122,74 +93,14 @@ def _count(shapes):
     return n, u
 
 
-def resnet_shapes(m):
-    """(path, kind, shape) of every array of the VBx ResNet tree."""
-    mc = m["m_channels"]
-    out = [("conv1", "conv", (3, 3, 1, mc)), ("bn1", "bn", mc)]
-    cin = mc
-    for si, nb in enumerate(m["num_blocks"]):
-        planes = mc * STAGE_MULT[si]
-        for bi in range(nb):
-            p = f"layer{si + 1}.{bi}"
-            out += [(p + ".conv1", "conv", (1, 1, cin, planes)),
-                    (p + ".bn1", "bn", planes),
-                    (p + ".conv2", "conv", (3, 3, planes, planes)),
-                    (p + ".bn2", "bn", planes),
-                    (p + ".conv3", "conv", (1, 1, planes, planes * 4)),
-                    (p + ".bn3", "bn", planes * 4)]
-            stride = 1 if si == 0 or bi else 2
-            if stride != 1 or cin != planes * 4:
-                out += [(p + ".sc_conv", "conv", (1, 1, cin, planes * 4)),
-                        (p + ".sc_bn", "bn", planes * 4)]
-            cin = planes * 4
-    f = m["feat_dim"]
-    for _ in range(3):
-        f = -(-f // 2)
-    out.append(("embedding", "embed", (2 * cin * f, m["embed_dim"])))
-    return out
+def kind(name):
+    """The module of model kind ``name``: ``kinds/<name>.py``."""
+    from perfbench import spec
 
-
-def _resnet_params(shapes, d, residual_gain):
-    tree = {}
-    for path, kind, shape in shapes:
-        if kind == "bn":
-            g, b, mu, v = _bn_list(d, shape)
-            if path.endswith(".bn3"):
-                # the residual branch's last scale: keeps 33 sums of a
-                # branch from growing the activations 2**16-fold
-                g = g * residual_gain
-            val = {"gamma": g, "beta": b, "mean": mu, "var": v}
-        elif kind == "embed":
-            val = {"w": d.normal(shape, math.sqrt(1.0 / shape[0])),
-                   "b": d.normal((shape[1],), 0.05)}
-        else:
-            val = d.normal(shape, math.sqrt(2.0 / math.prod(shape[:-1])))
-        node, keys = tree, path.split(".")
-        for i, key in enumerate(keys[:-1]):
-            if key.isdigit():
-                continue
-            nxt = keys[i + 1]
-            if nxt.isdigit():
-                lst = node.setdefault(key, [])
-                while len(lst) <= int(nxt):
-                    lst.append({})
-                node = lst[int(nxt)]
-            else:
-                node = node.setdefault(key, {})
-        node[keys[-1]] = val
-    return tree
-
-
-def _resnet_count(shapes):
-    n = u = 0
-    for _, kind, shape in shapes:
-        if kind == "bn":
-            n, u = n + 2 * shape, u + 2 * shape
-        elif kind == "embed":
-            n += math.prod(shape) + shape[1]
-        else:
-            n += math.prod(shape)
-    return n, u
+    if not os.path.exists(os.path.join(spec.HERE, "kinds", name + ".py")):
+        raise ValueError(f"model kind {name!r} has no module: add "
+                         f"perfbench/kinds/{name}.py")
+    return spec.module("kinds", name)
 
 
 def to_numpy(tree):
@@ -203,24 +114,17 @@ def to_numpy(tree):
 def make(config, seed, device):
     """-> {model name: {"kind", "layers" (Keras models), "torch" (device
     tensors), "numpy"}} for every model of ``config``, drawn in the sorted
-    order of their names from one generator seeded with ``seed``."""
+    order of their names from one generator seeded with ``seed``: one
+    normal and one uniform draw a model, sized and sliced by the module
+    of its kind (``kind``)."""
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     out = {}
     for name in sorted(config["models"]):
         m = config["models"][name]
-        if m["kind"] == "resnet_xvector":
-            shapes = resnet_shapes(m)
-            d = _Draws(g, *_resnet_count(shapes), device)
-            params = _resnet_params(shapes, d, m.get("residual_gain", 1.0))
-            out[name] = {"kind": m["kind"], "layers": None,
-                         "torch": params}
-        else:
-            layers, shapes = (patch_cnn_layers(m) if m["kind"] == "patch_cnn"
-                              else mlp_layers(m))
-            d = _Draws(g, *_count(shapes), device)
-            out[name] = {"kind": m["kind"], "layers": layers,
-                         "torch": _keras_params(shapes, d, m)}
+        k = kind(m["kind"])
+        d = _Draws(g, *k.draws(m), device)
+        out[name] = {"kind": m["kind"], **k.draw(m, d)}
         out[name]["numpy"] = to_numpy(out[name]["torch"])
     return out
 
